@@ -1,0 +1,173 @@
+"""K1 — punctured overlapped-window Viterbi decoder (RX, R7).
+
+Replaces ``dvbt_tpu/kernels/viterbi_pallas.py::_vit_punct_kernel`` (built by
+``make_viterbi_decoder_punctured``).  Contract: the PUNCTURED soft stream
+(uint8 0..15; hard decisions as 0/15) and the carried tail go in, decoded
+info bytes (MSB-first) come out.  The stream is cut into windows of
+``body + 2*overlap`` steps over the extended stream [tail | block | erasure
+pad]; window w starts at extended position w*body and keeps the decisions
+of its steps [overlap, overlap + body).  Punctured and pad steps add zero
+branch metric; the decision is c1 < c0 (ties to the even predecessor); the
+traceback starts at the lowest-index minimum state.
+
+The CUDA kernel is ``csrc/viterbi.cu``: one 64-thread block per window, one
+thread per state, path metrics in registers exchanged through shared memory,
+decisions packed by ``__ballot_sync`` into two words a step (the layout of
+``_pack_states``), single-thread traceback.  On the H100 it is bound by latency:
+a barrier per ACS step, then a chain of dependent shared-memory reads in
+the traceback; its speed comes from the number of windows resident per SM
+(~15 KB of shared memory a window at body 1024).
+
+The tail is a (..., 4, overlap) uint8 tensor with rows (x, y, x_known,
+y_known) — the ``{x, y, xm, ym}`` state of the JAX package, stacked.  Its
+masks are honoured as given (an all-zero tail at stream start is an
+erasure), as in the jnp decoder ``dvbt_tpu/ops/viterbi.py``.
+
+Dispatch is by tensor device only: CPU tensors take the plain version, CUDA
+tensors the kernel (or an error).  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from ..ops.inner_coder import make_depuncture
+from ..utils import puncture
+from ..utils.bits import bits_to_bytes
+from . import _build
+
+N_STATES = 64
+SOFT_MAX = 15
+
+launches = 0
+
+
+def punct_geometry(rate: str, body: int, overlap: int) -> tuple[int, int]:
+    """The (body, overlap) that the JAX package's Pallas decoder derives
+    from a requested pair (``viterbi_pallas.punct_geometry``): both rounded
+    up to lcm(8, period), then body grown until body + 2*overlap is a
+    multiple of its forward-iteration width and of 64.  Decoding at this
+    geometry reproduces the Pallas decoder's output bytes."""
+    period, _, _, _, align = puncture.pattern(rate)
+    ov = -(-overlap // align) * align
+    width = 32 * period if period % 2 else 32
+    width = width * 64 // math.gcd(width, 64)
+    b = -(-body // align) * align
+    while (b + 2 * ov) % width:
+        b += align
+    return b, ov
+
+
+@functools.lru_cache(maxsize=None)
+def _trellis_parity() -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Per new state s: outputs (x, y) of the edge from its d=0 predecessor,
+    the parities of (s << 1) & G1 and (s << 1) & G2."""
+    def par(v):
+        return bin(v).count("1") & 1
+    px = tuple(par((s << 1) & 0o171) for s in range(N_STATES))
+    py = tuple(par((s << 1) & 0o133) for s in range(N_STATES))
+    return px, py
+
+
+def _window_steps(coded, tail, n_bits, rate, body):
+    """Stage every window's steps: (x, y, xm, ym) int32 (B, L) each, B =
+    windows of all leading indices; the plain-version image of the kernel's
+    shared-memory staging."""
+    ov = tail.shape[-1]
+    lead = coded.shape[:-1]
+    n_win = -(-n_bits // body)
+    L = body + 2 * ov
+    pad = torch.zeros(*lead, n_win * body + ov - n_bits, dtype=torch.uint8,
+                      device=coded.device)     # erasures after the block
+    widx = (torch.arange(n_win, device=coded.device)[:, None] * body
+            + torch.arange(L, device=coded.device)[None, :]).reshape(-1)
+    steps = make_depuncture(n_bits, rate)(coded)
+    return [torch.cat([tail[..., k, :], s, pad], dim=-1).index_select(
+        -1, widx).reshape(-1, L).to(torch.int32) for k, s in enumerate(steps)]
+
+
+def viterbi_punct_plain(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
+                        rate: str, body: int) -> torch.Tensor:
+    """coded (..., n_c) uint8, tail (..., 4, overlap) uint8 ->
+    info bytes (..., n_bits // 8) uint8."""
+    ov = tail.shape[-1]
+    dev = coded.device
+    lead = coded.shape[:-1]
+    n_win = -(-n_bits // body)
+    L = body + 2 * ov
+    wx, wy, wxm, wym = _window_steps(coded, tail, n_bits, rate, body)
+    B = wx.shape[0]
+    px_t, py_t = _trellis_parity()
+    px = torch.tensor(px_t, dtype=torch.int32, device=dev)
+    py = torch.tensor(py_t, dtype=torch.int32, device=dev)
+    byte_w = (1 << torch.arange(8, dtype=torch.int32, device=dev))
+
+    pm = torch.zeros(B, N_STATES, dtype=torch.int32, device=dev)
+    # decisions, bit s%8 of byte s//8 = decision of state s
+    dec = torch.empty(L, B, 8, dtype=torch.uint8, device=dev)
+    for t in range(L):
+        sx, sy = wx[:, t:t + 1], wy[:, t:t + 1]
+        mx, my = wxm[:, t:t + 1], wym[:, t:t + 1]
+        bm0 = (mx * (sx + px * (SOFT_MAX - 2 * sx))
+               + my * (sy + py * (SOFT_MAX - 2 * sy)))
+        bm1 = SOFT_MAX * (mx + my) - bm0
+        A = pm.view(B, 32, 2)
+        c0 = A[:, :, 0].repeat(1, 2) + bm0     # pred 2*(s & 31)
+        c1 = A[:, :, 1].repeat(1, 2) + bm1     # pred 2*(s & 31) + 1
+        d = c1 < c0
+        pm = torch.where(d, c1, c0)
+        dec[t] = (d.view(B, 8, 8).to(torch.int32) * byte_w).sum(-1).to(
+            torch.uint8)
+
+    st = torch.argmin(pm, dim=-1)              # first (lowest) minimum
+    rows = torch.arange(B, device=dev)
+    bits = torch.empty(B, body, dtype=torch.uint8, device=dev)
+    for t in range(L - 1, ov - 1, -1):
+        if t < ov + body:
+            bits[:, t - ov] = (st >> 5).to(torch.uint8)
+        byte = dec[t, rows, st >> 3].to(torch.int64)
+        st = ((st & 31) << 1) | ((byte >> (st & 7)) & 1)
+    return bits_to_bytes(bits.reshape(*lead, n_win * body)[..., :n_bits])
+
+
+def viterbi_punct(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
+                  rate: str, body: int) -> torch.Tensor:
+    """K1 on CUDA tensors, the plain version on CPU tensors."""
+    if coded.device.type == "cpu":
+        return viterbi_punct_plain(coded, tail, n_bits, rate, body)
+    period, keep, _, rank, _ = puncture.pattern(rate)
+    ov = tail.shape[-1]
+    n_c = n_bits // period * keep
+    if coded.device.type != "cuda" or tail.device != coded.device:
+        raise ValueError(f"viterbi_punct: coded on {coded.device}, tail on "
+                         f"{tail.device}; the kernel takes CUDA tensors")
+    if coded.dtype != torch.uint8 or tail.dtype != torch.uint8:
+        raise TypeError("viterbi_punct: coded and tail must be uint8")
+    if not (coded.is_contiguous() and tail.is_contiguous()):
+        raise ValueError("viterbi_punct: coded and tail must be contiguous")
+    if (n_bits % period or n_bits % 8 or body % 8 or body <= 0
+            or coded.shape[-1] != n_c
+            or tail.shape != coded.shape[:-1] + (4, ov)):
+        raise ValueError(
+            f"viterbi_punct: coded {tuple(coded.shape)} / tail "
+            f"{tuple(tail.shape)} do not fit n_bits={n_bits} rate={rate} "
+            f"body={body}")
+    if 12 * (body + 2 * ov) > 200 * 1024:
+        raise ValueError(f"viterbi_punct: window {body}+2*{ov} exceeds the "
+                         "kernel's shared-memory budget")
+    n_mux = coded.numel() // n_c
+    out = torch.empty(coded.shape[:-1] + (n_bits // 8,), dtype=torch.uint8,
+                      device=coded.device)
+    rank_packed = sum((r + 1) << (4 * i) for i, r in enumerate(rank))
+    lib = _build.library()
+    code = lib.dvbt_viterbi_punct(
+        coded.data_ptr(), tail.data_ptr(), out.data_ptr(), n_mux, n_c,
+        n_bits, body, ov, period, keep, rank_packed,
+        torch.cuda.current_stream(coded.device).cuda_stream)
+    _build.check(code, "dvbt_viterbi_punct")
+    global launches
+    launches += 1
+    return out
