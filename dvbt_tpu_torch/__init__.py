@@ -3,14 +3,21 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package ``dvbt_tpu`` is the reference: each module here mirrors its
 counterpart's path and contract, and the tests hold the two against each
-other.  The mode object, the EN 300 744 tables and the test-stream
-generator are reused from ``dvbt_tpu`` (those modules import no JAX);
-nothing here imports JAX.
+other.  The port imports nothing of ``dvbt_tpu`` and nothing of JAX: the
+mode object (``mode.py``), the EN 300 744 tables (``tables.py``) and the
+test-stream helpers (``io/ts.py``) are its own copies, held equal to the
+originals by the tests.
 
 Layout:
-  ops/      — the DSP blocks of the flagship TX -> RX path
+  mode.py, tables.py, io/ts.py — mode object, EN 300 744 tables, TS
+              packets and files
+  blocks.py — the block registry: one descriptor per DSP block, as in the
+              JAX package, with factories in this package
+  ops/      — the DSP blocks: the flagship TX -> RX path, acquisition and
+              synchronization, channel estimation and TPS
   kernels/  — CUDA kernels (csrc/*.cu) with their plain PyTorch versions
-  models/   — make_transmitter / make_receiver, batched over muxes
+  models/   — make_transmitter / make_receiver, batched over muxes, and
+              the block-level receive chain from a raw capture
   utils/    — bit packing, the puncture pattern, carried-state exchange
               with the JAX package
   profile_slice.py — per-stage device time of the flagship step
@@ -20,5 +27,5 @@ return plain functions on tensors with a leading mux axis.  A kernel runs
 when its input lies on a CUDA device; on the CPU its plain version runs.
 """
 
-from dvbt_tpu.io.ts import make_ts_packets  # noqa: F401
-from dvbt_tpu.mode import DvbtMode, MODE_2K_QPSK, MODE_8K_UK  # noqa: F401
+from .io.ts import make_ts_packets  # noqa: F401
+from .mode import DvbtMode, MODE_2K_QPSK, MODE_8K_UK  # noqa: F401

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-The sources in ``dvbt_tpu_torch/csrc/*.cu`` have a plain C interface, so one
-``nvcc`` call builds them in seconds and ``ctypes`` binds them (no PyTorch
-headers).  The library is built at first use into ``build/dvbt_tpu_torch/``
-beside the package, under a file name that carries a hash of the sources and
-flags, so a stale build is never loaded.  A failed build raises with nvcc's
+The sources in ``dvbt_tpu_torch/csrc/*.cu`` have a plain C interface, so
+``nvcc`` builds them in seconds and ``ctypes`` binds them (no PyTorch
+headers): one ``nvcc -c`` per source, all started together, then one
+link.  The library is built at first use into ``build/dvbt_tpu_torch/``
+beside the package, under a file name that carries a hash of the sources
+and flags, so a stale build is never loaded.  A failed build raises with nvcc's
 own error output: there is no fallback.
 """
 
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dvbt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # C entry points: name -> argument types (pointers and the stream as void*,
@@ -29,6 +30,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "dvbt_byte_coder": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dvbt_viterbi_punct": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dvbt_viterbi_depunct": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -60,14 +62,33 @@ def build() -> tuple[Path, str]:
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    # (cmd, output, exit code) once every compile has ended
+    done = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in procs]
+    failed = [d for d in done if d[2] != 0]
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append((cmd, proc.stderr + proc.stdout, proc.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, out, code in failed:
+        raise RuntimeError(f"nvcc failed (exit {code}): {' '.join(cmd)}\n"
+                           f"{out}")
     os.replace(tmp, so)
-    return so, proc.stderr + proc.stdout
+    return so, "".join(d[1] for d in done)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,14 @@
-"""K1 — punctured overlapped-window Viterbi decoder (RX, R7).
+"""K1 and K3 — overlapped-window Viterbi decoders (RX, R7).
 
-Replaces ``dvbt_tpu/kernels/viterbi_pallas.py::_vit_punct_kernel`` (built by
-``make_viterbi_decoder_punctured``).  Contract: the PUNCTURED soft stream
+K1 (``viterbi_punct``) replaces ``dvbt_tpu/kernels/viterbi_pallas.py::
+_vit_punct_kernel`` (built by ``make_viterbi_decoder_punctured``), the
+decoder of the receiver's main path.  K3 (``viterbi_depunct``, behind the
+``viterbi_decoder`` block's ``make_viterbi_decoder``) replaces
+``_viterbi_kernel`` (built by ``make_viterbi_decoder``): the depunctured
+streams x, y with per-step masks xm, ym go in, one byte per info bit comes
+out, and the carried state is the {x, y, xm, ym} tail of the stream.
+
+K1's contract: the PUNCTURED soft stream
 (uint8 0..15; hard decisions as 0/15) and the carried tail go in, decoded
 info bytes (MSB-first) come out.  The stream is cut into windows of
 ``body + 2*overlap`` steps over the extended stream [tail | block | erasure
@@ -10,13 +17,16 @@ of its steps [overlap, overlap + body).  Punctured and pad steps add zero
 branch metric; the decision is c1 < c0 (ties to the even predecessor); the
 traceback starts at the lowest-index minimum state.
 
-The CUDA kernel is ``csrc/viterbi.cu``: one 64-thread block per window, one
+The CUDA kernels are in ``csrc/viterbi.cu`` and share their add-compare-
+select, decision packing and traceback: one 64-thread block per window, one
 thread per state, path metrics in registers exchanged through shared memory,
 decisions packed by ``__ballot_sync`` into two words a step (the layout of
-``_pack_states``), single-thread traceback.  On the H100 it is bound by latency:
-a barrier per ACS step, then a chain of dependent shared-memory reads in
-the traceback; its speed comes from the number of windows resident per SM
-(~15 KB of shared memory a window at body 1024).
+``_pack_states``), single-thread traceback.  On the H100 they are bound by
+latency: a barrier per ACS step, then a chain of dependent shared-memory
+reads in the traceback; the speed comes from the number of windows
+resident per SM (12 bytes of shared memory a step: ~15 KB a window for K1
+at body 1024, ~51 KB for K3 at body 4096).  Their least time is set by
+the ACS operations (~4 int32 operations a state-step), not by bytes.
 
 The tail is a (..., 4, overlap) uint8 tensor with rows (x, y, x_known,
 y_known) — the ``{x, y, xm, ym}`` state of the JAX package, stacked.  Its
@@ -24,7 +34,8 @@ masks are honoured as given (an all-zero tail at stream start is an
 erasure), as in the jnp decoder ``dvbt_tpu/ops/viterbi.py``.
 
 Dispatch is by tensor device only: CPU tensors take the plain version, CUDA
-tensors the kernel (or an error).  ``launches`` counts kernel launches.
+tensors the kernel (or an error).  ``launches`` counts K1's launches,
+``depunct_launches`` K3's.
 """
 
 from __future__ import annotations
@@ -42,7 +53,8 @@ from . import _build
 N_STATES = 64
 SOFT_MAX = 15
 
-launches = 0
+launches = 0           # K1 launches
+depunct_launches = 0   # K3 launches
 
 
 def punct_geometry(rate: str, body: int, overlap: int) -> tuple[int, int]:
@@ -72,34 +84,30 @@ def _trellis_parity() -> tuple[tuple[int, ...], tuple[int, ...]]:
     return px, py
 
 
-def _window_steps(coded, tail, n_bits, rate, body):
+def _windows(steps, tail, n_bits, body):
     """Stage every window's steps: (x, y, xm, ym) int32 (B, L) each, B =
-    windows of all leading indices; the plain-version image of the kernel's
-    shared-memory staging."""
+    windows of all leading indices, from the four (..., n_bits) step
+    streams over [tail | block | erasure pad]; the plain-version image of
+    the kernels' shared-memory staging."""
     ov = tail.shape[-1]
-    lead = coded.shape[:-1]
+    dev = tail.device
+    lead = tail.shape[:-2]
     n_win = -(-n_bits // body)
     L = body + 2 * ov
     pad = torch.zeros(*lead, n_win * body + ov - n_bits, dtype=torch.uint8,
-                      device=coded.device)     # erasures after the block
-    widx = (torch.arange(n_win, device=coded.device)[:, None] * body
-            + torch.arange(L, device=coded.device)[None, :]).reshape(-1)
-    steps = make_depuncture(n_bits, rate)(coded)
+                      device=dev)              # erasures after the block
+    widx = (torch.arange(n_win, device=dev)[:, None] * body
+            + torch.arange(L, device=dev)[None, :]).reshape(-1)
     return [torch.cat([tail[..., k, :], s, pad], dim=-1).index_select(
         -1, widx).reshape(-1, L).to(torch.int32) for k, s in enumerate(steps)]
 
 
-def viterbi_punct_plain(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
-                        rate: str, body: int) -> torch.Tensor:
-    """coded (..., n_c) uint8, tail (..., 4, overlap) uint8 ->
-    info bytes (..., n_bits // 8) uint8."""
-    ov = tail.shape[-1]
-    dev = coded.device
-    lead = coded.shape[:-1]
-    n_win = -(-n_bits // body)
-    L = body + 2 * ov
-    wx, wy, wxm, wym = _window_steps(coded, tail, n_bits, rate, body)
-    B = wx.shape[0]
+def _decode_windows(wx, wy, wxm, wym, ov, body):
+    """Add-compare-select and traceback of every window, as the kernels do
+    it: (B, L) int32 staged steps -> (B, body) uint8 bits of the body
+    steps [ov, ov + body)."""
+    B, L = wx.shape
+    dev = wx.device
     px_t, py_t = _trellis_parity()
     px = torch.tensor(px_t, dtype=torch.int32, device=dev)
     py = torch.tensor(py_t, dtype=torch.int32, device=dev)
@@ -130,7 +138,19 @@ def viterbi_punct_plain(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
             bits[:, t - ov] = (st >> 5).to(torch.uint8)
         byte = dec[t, rows, st >> 3].to(torch.int64)
         st = ((st & 31) << 1) | ((byte >> (st & 7)) & 1)
-    return bits_to_bytes(bits.reshape(*lead, n_win * body)[..., :n_bits])
+    return bits
+
+
+def viterbi_punct_plain(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
+                        rate: str, body: int) -> torch.Tensor:
+    """coded (..., n_c) uint8, tail (..., 4, overlap) uint8 ->
+    info bytes (..., n_bits // 8) uint8."""
+    ov = tail.shape[-1]
+    n_win = -(-n_bits // body)
+    steps = make_depuncture(n_bits, rate)(coded)
+    bits = _decode_windows(*_windows(steps, tail, n_bits, body), ov, body)
+    return bits_to_bytes(
+        bits.reshape(*coded.shape[:-1], n_win * body)[..., :n_bits])
 
 
 def viterbi_punct(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
@@ -171,3 +191,108 @@ def viterbi_punct(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
     global launches
     launches += 1
     return out
+
+
+# --- K3: the depunctured decoder of the viterbi_decoder block -------------
+
+DEFAULT_BODY = 4096
+DEFAULT_OVERLAP = 128
+_LANES = 128
+_STEPS = ("x", "y", "xm", "ym")
+
+
+def auto_body(n_bits: int) -> int:
+    """The JAX package's window body for n_bits (``viterbi_pallas.
+    auto_body``): ~127 windows to a 128-lane block, capped at 4096 and at
+    least 256, a multiple of 32.  K3 keeps it, so the block returns the JAX
+    block's bytes under noise; a body chosen for the H100 is open work."""
+    cand = -(-(-(-n_bits // (_LANES - 1))) // 32) * 32
+    return int(min(DEFAULT_BODY, max(256, cand)))
+
+
+def init_state(n_mux: int, device, overlap: int = DEFAULT_OVERLAP) -> dict:
+    """All-zero {x, y, xm, ym} (n_mux, overlap) tails: an erasure warm-up."""
+    return {k: torch.zeros(n_mux, overlap, dtype=torch.uint8, device=device)
+            for k in _STEPS}
+
+
+def viterbi_depunct_plain(x: torch.Tensor, y: torch.Tensor, xm: torch.Tensor,
+                          ym: torch.Tensor, tail: torch.Tensor,
+                          body: int) -> torch.Tensor:
+    """x, y, xm, ym (..., n_bits) uint8, tail (..., 4, overlap) uint8 ->
+    bits (..., n_bits) uint8 {0, 1}."""
+    n_bits = x.shape[-1]
+    ov = tail.shape[-1]
+    n_win = -(-n_bits // body)
+    bits = _decode_windows(*_windows((x, y, xm, ym), tail, n_bits, body), ov,
+                           body)
+    return bits.reshape(*x.shape[:-1], n_win * body)[..., :n_bits]
+
+
+def viterbi_depunct(x: torch.Tensor, y: torch.Tensor, xm: torch.Tensor,
+                    ym: torch.Tensor, tail: torch.Tensor,
+                    body: int) -> torch.Tensor:
+    """K3 on CUDA tensors, the plain version on CPU tensors."""
+    steps = (x, y, xm, ym)
+    if x.device.type == "cpu":
+        return viterbi_depunct_plain(x, y, xm, ym, tail, body)
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for t in (*steps, tail)):
+        raise ValueError("viterbi_depunct: x, y, xm, ym and tail must lie "
+                         "on one CUDA device; the kernel takes CUDA tensors")
+    if any(t.dtype != torch.uint8 for t in (*steps, tail)):
+        raise TypeError("viterbi_depunct: x, y, xm, ym and tail must be uint8")
+    if not all(t.is_contiguous() for t in (*steps, tail)):
+        raise ValueError("viterbi_depunct: x, y, xm, ym and tail must be "
+                         "contiguous")
+    ov = tail.shape[-1]
+    if (any(t.shape != x.shape for t in steps) or x.dim() < 1
+            or tail.shape != x.shape[:-1] + (4, ov) or body <= 0):
+        raise ValueError(
+            f"viterbi_depunct: x/y/xm/ym {[tuple(t.shape) for t in steps]} "
+            f"/ tail {tuple(tail.shape)} / body {body} do not fit")
+    if 12 * (body + 2 * ov) > 200 * 1024:
+        raise ValueError(f"viterbi_depunct: window {body}+2*{ov} exceeds the "
+                         "kernel's shared-memory budget")
+    n_bits = x.shape[-1]
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    lib = _build.library()
+    code = lib.dvbt_viterbi_depunct(
+        x.data_ptr(), y.data_ptr(), xm.data_ptr(), ym.data_ptr(),
+        tail.data_ptr(), out.data_ptr(), x.numel() // max(n_bits, 1), n_bits,
+        body, ov, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "dvbt_viterbi_depunct")
+    global depunct_launches
+    depunct_launches += 1
+    return out
+
+
+def make_viterbi_decoder(n_bits: int, body: int | None = None,
+                         overlap: int = DEFAULT_OVERLAP):
+    """The ``viterbi_decoder`` block.  Returns decode(state, x, y, xm, ym)
+    -> (state', bits), the contract of ``viterbi_pallas.
+    make_viterbi_decoder`` with a leading mux axis:
+
+    x, y   : uint8 (n_mux, n_bits) soft mother-code values 0..15;
+    xm, ym : uint8 (n_mux, n_bits) 1 where the bit was sent;
+    state  : {'x','y','xm','ym'} uint8 (n_mux, overlap), the last
+             ``overlap`` steps of the stream so far (all zero at stream
+             start: erasures, as the masks say);
+    bits   : uint8 (n_mux, n_bits) decoded info bits {0, 1}.
+
+    Windows of ``body + 2*overlap`` steps start every ``body`` steps over
+    [state | block | erasure pad]; window w keeps its steps [overlap,
+    overlap + body).  The work is kernel K3 (``viterbi_depunct``)."""
+    body = auto_body(n_bits) if body is None else body
+    if body <= 0 or overlap <= 0:
+        raise ValueError(f"body={body}, overlap={overlap} must be positive")
+
+    def decode(state: dict, x, y, xm, ym):
+        steps = (x, y, xm, ym)
+        tail = torch.stack([state[k] for k in _STEPS], dim=-2)
+        bits = viterbi_depunct(*steps, tail, body)
+        new_state = {k: torch.cat([state[k], v], dim=-1)[
+            ..., n_bits:n_bits + overlap] for k, v in zip(_STEPS, steps)}
+        return new_state, bits
+
+    return decode

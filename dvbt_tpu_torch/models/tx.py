@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function as scope
 
-from dvbt_tpu.mode import RS_PACKET, SYMBOLS_PER_FRAME, DvbtMode
+from ..mode import RS_PACKET, SYMBOLS_PER_FRAME, DvbtMode
 
 from ..ops import (
     bit_interleaver,

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dvbt_tpu import tables
-from dvbt_tpu.mode import DvbtMode
+from .. import tables
+from ..mode import DvbtMode
 
 
 def _block_dims(mode: DvbtMode):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from dvbt_tpu import tables
+from .. import tables
 
 
 def make_energy_dispersal(n_packets: int, device):

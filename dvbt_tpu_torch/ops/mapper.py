@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dvbt_tpu.mode import DvbtMode
+from ..mode import DvbtMode
 
 
 def make_mapper(mode: DvbtMode, device):

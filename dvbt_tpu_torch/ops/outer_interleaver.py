@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dvbt_tpu.mode import OUTER_I, RS_PACKET
+from ..mode import OUTER_I, RS_PACKET
 
 TAIL = (OUTER_I - 1) * RS_PACKET  # 2244 bytes of carried history
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dvbt_tpu import tables
+from .. import tables
 
 RS_N, RS_K, RS_T = tables.RS_N, tables.RS_K, tables.RS_T
 RS_2T = 2 * RS_T

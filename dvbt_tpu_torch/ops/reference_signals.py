@@ -1,7 +1,10 @@
 """Frame adaptation, pilots & TPS (T8) and their RX-side duals (R3),
 EN300744 §4.4 (frame adaptation), §4.5 (pilots), §4.6 (TPS).
 
-Counterpart of dvbt_tpu/ops/reference_signals.py.  A frame is 68 symbols;
+Counterpart of dvbt_tpu/ops/reference_signals.py: the TX frame builder
+and frame adapter, and on the RX side the two channel estimators (time
+and frequency interpolation), payload extraction, the cell deinterleaver
+and the TPS decoder.  A frame is 68 symbols;
 the scattered-pilot pattern repeats with period 4 and the continual/TPS
 carrier sets are fixed, so everything but the TPS payload is a static
 table, and every per-symbol carrier permutation depends only on the symbol
@@ -17,8 +20,8 @@ import functools
 import numpy as np
 import torch
 
-from dvbt_tpu import tables
-from dvbt_tpu.mode import SYMBOLS_PER_FRAME, DvbtMode
+from .. import tables
+from ..mode import SYMBOLS_PER_FRAME, DvbtMode
 
 from . import symbol_interleaver as si
 
@@ -62,15 +65,26 @@ def _frame_tables(mode: DvbtMode):
             fac[l] = fac[l - 1] * (1.0 - 2.0 * float(s[l]))
         tps_cells[f] = fac[:, None] * sign_w[tp][None, :]
 
-    # scattered-pilot carriers per phase, padded to the max count
+    # scattered-pilot carriers per phase, padded to the max count, and for
+    # every (l, k) the left pilot slot and linear weight of the frequency
+    # interpolation
     n_sp_max = max(len(sp) for sp in sp_list)
     sp_idx = np.zeros((4, n_sp_max), dtype=np.int32)
+    left_slot = np.zeros((4, K), dtype=np.int32)
+    weight = np.zeros((4, K), dtype=np.float32)
     for l in range(4):
-        sp_idx[l, :len(sp_list[l])] = sp_list[l]
-        sp_idx[l, len(sp_list[l]):] = sp_list[l][-1]
+        sp = sp_list[l]
+        n_sp = len(sp)
+        sp_idx[l, :n_sp] = sp
+        sp_idx[l, n_sp:] = sp[-1]
+        pos = (np.arange(K) - sp[0]) / 12.0
+        i0 = np.clip(np.floor(pos).astype(np.int64), 0, n_sp - 2)
+        weight[l] = np.clip(pos - i0, 0.0, 1.0).astype(np.float32)
+        left_slot[l] = i0.astype(np.int32)
     pilot_ref = PILOT_BOOST * sign_w[sp_idx]  # (4, n_sp_max)
     return dict(pilot_rows=pilot_rows, data_idx=data_idx, tp=tp,
-                tps_cells=tps_cells, sp_idx=sp_idx, pilot_ref=pilot_ref)
+                tps_cells=tps_cells, sp_idx=sp_idx, pilot_ref=pilot_ref,
+                left_slot=left_slot, weight=weight)
 
 
 def _row_take(idx4: np.ndarray, device):
@@ -178,3 +192,88 @@ def make_cell_deinterleaver(mode: DvbtMode, device):
     pair = si._perm_pair(mode, deinterleave=True)
     idx = np.stack([t["data_idx"][p][pair[p % 2]] for p in range(4)])
     return _row_take(idx, device)
+
+
+def make_frame_adapter(mode: DvbtMode, device):
+    """TX frame adaptation (the ``reference_signals`` step without the
+    symbol interleaver).  Returns apply(frame_idx, data): data complex64
+    (..., 68, n_payload) -> carriers (..., 68, K); frame_idx int (...)
+    frame numbers, mod 4 selecting the TPS payload."""
+    t = _frame_tables(mode)
+    ref_np = np.tile(t["pilot_rows"].astype(np.complex64)[None],
+                     (4, _TILE, 1))
+    ref_np[:, :, t["tp"]] = t["tps_cells"].astype(np.complex64)
+    ref = torch.as_tensor(ref_np, device=device)      # (4, 68, K)
+    data_idx = torch.as_tensor(np.tile(t["data_idx"], (_TILE, 1)).astype(
+        np.int64), device=device)                     # (68, n_payload)
+
+    def apply(frame_idx, data: torch.Tensor) -> torch.Tensor:
+        fidx = torch.as_tensor(frame_idx, device=data.device)
+        tmpl = ref[fidx.to(torch.int64) % 4]
+        out = tmpl.expand(*data.shape[:-1], ref.shape[-1]).clone()
+        return out.scatter_(-1, data_idx.expand(data.shape),
+                            data.to(torch.complex64))
+
+    return apply
+
+
+def make_channel_estimator(mode: DvbtMode, device):
+    """RX LS channel estimate with linear frequency interpolation between
+    the current symbol's scattered pilots (every 12th carrier; the
+    ``demod_reference_signals`` block, ``chan_est="freq"``).  Stateless.
+
+    Returns estimate(Y): complex64 (..., S, K) -> H (..., S, K), row phase
+    = row index mod 4, S % 4 == 0."""
+    t = _frame_tables(mode)
+    pilot_ref = torch.as_tensor(t["pilot_ref"].astype(np.complex64),
+                                device=device)            # (4, n_sp)
+    weight = torch.as_tensor(t["weight"], device=device)  # (4, K)
+    take_sp = _row_take(t["sp_idx"], device)
+    take_hl = _row_take(t["left_slot"], device)
+    take_hr = _row_take(t["left_slot"] + 1, device)
+
+    def estimate(Y: torch.Tensor) -> torch.Tensor:
+        S = Y.shape[-2]
+        if S % 4:
+            raise ValueError(f"{S} symbols is not a whole pilot period")
+        w = weight.repeat(S // 4, 1)
+        Hp = take_sp(Y) / pilot_ref.repeat(S // 4, 1)
+        return take_hl(Hp) * (1.0 - w) + take_hr(Hp) * w
+
+    return estimate
+
+
+def make_payload_extractor(mode: DvbtMode, device):
+    """RX: the n_payload data cells of each symbol, in carrier order.
+    Returns extract(X): (..., S, K) -> (..., S, n_payload), S % 4 == 0."""
+    return _row_take(_frame_tables(mode)["data_idx"], device)
+
+
+def make_tps_decoder(mode: DvbtMode, device):
+    """RX: DBPSK-demodulate the TPS bits of frame-aligned symbols.
+
+    Returns decode(Y): complex64 (..., 68, K) -> (bits uint8 (..., 68),
+    frame_num int32 (...)).  Bit l >= 1 is the majority vote over the TPS
+    carriers of the differential phase between symbols l-1 and l; s0 is
+    reported as 0 (the modulation init, not data); frame_num is s23 s24."""
+    tp = torch.as_tensor(_frame_tables(mode)["tp"].astype(np.int64),
+                         device=device)
+
+    def decode(Y: torch.Tensor):
+        cells = Y.index_select(-1, tp)                   # (..., 68, n_tps)
+        diff = cells[..., 1:, :] * cells[..., :-1, :].conj()
+        votes = diff.real.sum(-1)                        # (..., 67)
+        bits = (votes < 0).to(torch.uint8)
+        s = torch.cat([torch.zeros_like(bits[..., :1]), bits], dim=-1)
+        frame_num = ((s[..., 23].to(torch.int32) << 1)
+                     | s[..., 24].to(torch.int32))
+        return s, frame_num
+
+    return decode
+
+
+def expected_tps_bits(mode: DvbtMode, frame_idx: int) -> np.ndarray:
+    """Host-side TPS reference (s0 zeroed like the decoder)."""
+    s = mode.tps_bits(frame_idx).copy()
+    s[0] = 0
+    return s

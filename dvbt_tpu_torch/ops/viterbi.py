@@ -68,5 +68,5 @@ def make_viterbi_decoder(n_bits: int, rate: str, body: int = DEFAULT_BODY,
 
 
 def init_state(n_mux: int, overlap: int, device) -> dict:
-    return {k: torch.zeros(n_mux, overlap, dtype=torch.uint8, device=device)
-            for k in ("x", "y", "xm", "ym")}
+    """All-zero {x, y, xm, ym} (n_mux, overlap) tails: an erasure warm-up."""
+    return kvit.init_state(n_mux, device, overlap)

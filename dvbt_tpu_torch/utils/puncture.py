@@ -11,7 +11,7 @@ import functools
 import math
 from typing import NamedTuple
 
-from dvbt_tpu import tables
+from .. import tables
 
 
 class Puncture(NamedTuple):

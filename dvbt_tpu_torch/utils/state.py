@@ -5,7 +5,10 @@ with a leading mux axis on every leaf (the layout ``jax.vmap`` gives a
 batched JAX state).  These helpers take such a JAX state as numpy arrays
 and return the port's tensors, and back, so a stream can be handed over
 mid-way in either direction.  DVB-T has no weights: both sides build their
-static tables from ``dvbt_tpu.tables``.
+static tables from the same EN 300 744 definitions.
+
+``mode_from_jax`` gives the port's DvbtMode for a mode of the JAX package,
+field by field.
 
 TX leaves: dispersal_phase, outer_tail, coder_state, frame_idx.
 RX leaves: deint_tail, viterbi {x, y, xm, ym}, descr_phase, descr_locked,
@@ -14,8 +17,12 @@ chan_tail (complex), chan_valid.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from ..mode import DvbtMode
 
 _TX_KEYS = ("dispersal_phase", "outer_tail", "coder_state", "frame_idx")
 _RX_KEYS = ("deint_tail", "viterbi", "descr_phase", "descr_locked",
@@ -27,6 +34,13 @@ _DTYPES = {
     "descr_phase": torch.int32, "descr_locked": torch.bool,
     "chan_tail": torch.complex64, "chan_valid": torch.bool,
 }
+
+
+def mode_from_jax(jmode) -> DvbtMode:
+    """The port's DvbtMode with the fields of `jmode` (a DvbtMode of the JAX
+    package, or any object with the same fields)."""
+    return DvbtMode(**{f.name: getattr(jmode, f.name)
+                       for f in dataclasses.fields(DvbtMode)})
 
 
 def _from_jax(jstate, keys, device) -> dict:

@@ -21,6 +21,7 @@ from dvbt_tpu.models import tx as j_tx
 from dvbt_tpu_torch.models import rx as t_rx
 from dvbt_tpu_torch.models import tx as t_tx
 from dvbt_tpu_torch.utils import state as t_state
+from dvbt_tpu_torch.utils.state import mode_from_jax as port_mode
 
 torch.set_num_threads(1)
 
@@ -40,8 +41,8 @@ def _jax_chain(mode):
 
 @functools.lru_cache(maxsize=None)
 def _port_chain(mode):
-    tx, n_pk, _ = t_tx.make_transmitter(mode, "cpu")
-    rx, _, _ = t_rx.make_receiver(mode, "cpu")
+    tx, n_pk, _ = t_tx.make_transmitter(port_mode(mode), "cpu")
+    rx, _, _ = t_rx.make_receiver(port_mode(mode), "cpu", metrics="min")
     return tx, rx, n_pk
 
 
@@ -120,8 +121,8 @@ def test_tx_rx_matches_jax(mode):
     packets = _packets(mode, 3, seed=21)
     j_t = [j_tx.init_tx_state(mode) for _ in range(N_MUX)]
     j_r = [j_rx.init_rx_state(mode) for _ in range(N_MUX)]
-    p_t = t_tx.init_tx_state(mode, N_MUX, "cpu")
-    p_r = t_rx.init_rx_state(mode, N_MUX, "cpu")
+    p_t = t_tx.init_tx_state(port_mode(mode), N_MUX, "cpu")
+    p_r = t_rx.init_rx_state(port_mode(mode), N_MUX, "cpu")
     ts_blocks, bad = [], []
     for blk in packets:
         want = _jax_block(mode, j_t, j_r, blk)
@@ -144,8 +145,8 @@ def test_awgn_20db_both_decode_the_sent_packets():
     n_samp = 68 * mode.symbol_len
     j_t = [j_tx.init_tx_state(mode) for _ in range(N_MUX)]
     j_r = [j_rx.init_rx_state(mode) for _ in range(N_MUX)]
-    p_t = t_tx.init_tx_state(mode, N_MUX, "cpu")
-    p_r = t_rx.init_rx_state(mode, N_MUX, "cpu")
+    p_t = t_tx.init_tx_state(port_mode(mode), N_MUX, "cpu")
+    p_r = t_rx.init_rx_state(port_mode(mode), N_MUX, "cpu")
     j_ts, p_ts, corrected = [], [], 0
     for blk in packets:
         noise = _awgn(rng, (N_MUX, n_samp), 20.0)
@@ -189,8 +190,8 @@ def test_state_conversion_round_trip():
     jr = _stack([j_rx.init_rx_state(mode)] * N_MUX)
     pt = t_state.tx_state_from_jax(jt, "cpu")
     pr = t_state.rx_state_from_jax(jr, "cpu")
-    want_t = t_tx.init_tx_state(mode, N_MUX, "cpu")
-    want_r = t_rx.init_rx_state(mode, N_MUX, "cpu")
+    want_t = t_tx.init_tx_state(port_mode(mode), N_MUX, "cpu")
+    want_r = t_rx.init_rx_state(port_mode(mode), N_MUX, "cpu")
     for got, want in ((pt, want_t), (pr, want_r)):
         flat_g = jax.tree.leaves(t_state.to_jax(got))
         flat_w = jax.tree.leaves(t_state.to_jax(want))

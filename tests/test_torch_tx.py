@@ -33,6 +33,7 @@ from dvbt_tpu_torch.ops import outer_interleaver as t_oil
 from dvbt_tpu_torch.ops import reed_solomon as t_rs
 from dvbt_tpu_torch.ops import reference_signals as t_ref
 from dvbt_tpu_torch.utils import bits as t_bits
+from dvbt_tpu_torch.utils.state import mode_from_jax as port_mode
 
 torch.set_num_threads(1)
 
@@ -153,10 +154,11 @@ def test_bit_interleaver_and_mapper_match_jax(name):
     mode = MODES[name]
     rng = np.random.default_rng(6)
     bits = rng.integers(0, 2, (2, 3, mode.n_payload * mode.v), dtype=np.uint8)
-    cells = t_bil.make_bit_interleaver(mode, "cpu")(torch.from_numpy(bits))
+    cells = t_bil.make_bit_interleaver(port_mode(mode), "cpu")(
+        torch.from_numpy(bits))
     want = np.asarray(j_bil.make_bit_interleaver(mode)(jnp.asarray(bits)))
     np.testing.assert_array_equal(cells.numpy(), want)
-    pts = t_map.make_mapper(mode, "cpu")(cells)
+    pts = t_map.make_mapper(port_mode(mode), "cpu")(cells)
     np.testing.assert_array_equal(
         pts.numpy(), np.asarray(j_map.make_mapper(mode)(jnp.asarray(want))))
 
@@ -169,9 +171,9 @@ def test_frame_builder_and_modulator_match_jax(name):
     pts = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
            ).astype(np.complex64)
     fidx = np.array([1, 2], np.int32)
-    carriers = t_ref.make_frame_builder(mode, "cpu")(
+    carriers = t_ref.make_frame_builder(port_mode(mode), "cpu")(
         torch.from_numpy(fidx), torch.from_numpy(pts))
-    iq = t_ofdm.make_ofdm_modulator(mode, "cpu")(carriers)
+    iq = t_ofdm.make_ofdm_modulator(port_mode(mode), "cpu")(carriers)
     build_j = j_ref.make_frame_builder(mode)
     mod_j = j_ofdm.make_ofdm_modulator(mode, fft_impl="jnp")
     for m in range(2):
@@ -187,9 +189,9 @@ def test_transmitter_matches_golden(name, mode):
     """The port's TX against the frozen snapshots of the JAX TX (the 8K
     case is the one 8K test of the port's CPU suite)."""
     want = np.load(os.path.join(GOLDEN_DIR, f"tx_{name}.npz"))
-    tx, n_pk, n_samp = t_tx.make_transmitter(mode, "cpu")
+    tx, n_pk, n_samp = t_tx.make_transmitter(port_mode(mode), "cpu")
     pk = torch.from_numpy(make_ts_packets(n_pk, seed=7))[None]
-    state = t_tx.init_tx_state(mode, 1, "cpu")
+    state = t_tx.init_tx_state(port_mode(mode), 1, "cpu")
     state, iq = tx(state, pk)
     _, iq2 = tx(state, pk)
     assert iq.shape == (1, n_samp) and iq.dtype == torch.complex64
@@ -205,4 +207,4 @@ def test_transmitter_matches_golden(name, mode):
 def test_transmitter_rejects_hierarchical():
     mode = DvbtMode("2k", "16qam", "3/4", alpha=2)
     with pytest.raises(NotImplementedError, match="item 20"):
-        t_tx.make_transmitter(mode, "cpu")
+        t_tx.make_transmitter(port_mode(mode), "cpu")
