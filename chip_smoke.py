@@ -13,7 +13,12 @@ path: 8 raw captures, each with its own delay, CFO and AWGN at 30 dB,
 through the registry's blocks from the synchronizer to the descrambler
 (K3 decodes), and checks each mux's sync estimates against the
 impairments, its TS byte-exact from the detected frame on, and its TPS
-bits.  Ends with timings.
+bits.  Then timings, and the parallel package: 4 rank processes on the one
+card (spawned, gloo between them) check K4, the halo ring over CUDA IPC,
+against its plain send/recv version, run the dryrun at MODE_8K_UK (mux-DP
+over 4 x 2 muxes; the time-sharded loopback over 8 one-frame blocks, equal
+to the single-process streaming chain; the K4 halo path equal to the
+send/recv one) and time K4 and the sharded step.
 Every phase raises on failure (nonzero exit).  The last line is one JSON
 object {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit from nvidia-smi, and before that a JSON line with
@@ -96,6 +101,52 @@ def numpy_mother_code(bits, rate: str, order, period: int):
     y = np.convolve(bits, g2)[:n] % 2
     pairs = np.stack([x, y], axis=1).reshape(n // period, 2 * period)
     return pairs[:, np.asarray(order)].reshape(-1).astype(np.uint8)
+
+
+def parallel_phase(card: str) -> dict:
+    """Phase 7: 4 ranks on the one card (ring_bench.rank_main: K4 against
+    its plain version, a lone call that must time out, the dryrun at the
+    flagship mode, K4 and step timings); returns K4's entry of the
+    kernels line."""
+    import os
+
+    from dvbt_tpu_torch.kernels import _build
+    from dvbt_tpu_torch.parallel import multihost, ring_bench
+
+    n_ranks = 4
+    out_path = _build.BUILD_DIR / f"parallel_{os.getpid()}.json"
+    out_path.unlink(missing_ok=True)
+    t0 = time.time()
+    multihost.launch(ring_bench.rank_main, n_ranks, args=(str(out_path),),
+                     timeout_s=300, deadline_s=900)
+    res = json.loads(out_path.read_text())
+    print(f"[parallel] {n_ranks} ranks on one card in "
+          f"{time.time() - t0:.1f} s: K4 byte-exact against its plain "
+          f"version on {res['payloads']} over 4 calls each; dryrun stages "
+          f"{ {k: round(v['seconds'], 2) for k, v in res['dryrun'].items()} }"
+          f", launches {res['launches']}; a lone call raised: "
+          f"{res['timeout_error']}", flush=True)
+    require(res["launches"]["ring_shift"] > 0,
+            f"the time-sharded path did not launch K4: {res['launches']}")
+    require(res["launches"]["viterbi_depunct"] > 0,
+            f"the halo recompute did not launch K3: {res['launches']}")
+    for key, t in res["times"].items():
+        print(f"[time] ring_shift {key} halo {t['bytes']} B, 4 ranks on one "
+              f"card (includes the neighbour barrier across time-sliced "
+              f"contexts): kernel {t['k4']:.4f} ms, plain send/recv "
+              f"{t['plain']:.4f} ms, runs {t['runs']} ({card})",
+              flush=True)
+    print(f"[time] time-sharded step, 4 ranks x 1 frame, host clock: "
+          f"{res['step_ms']} ms ({card})", flush=True)
+    iq = res["times"]["iq"]
+    t_bound, by = bound(2 * iq["bytes"], 0)
+    return {"name": "ring_shift", "route": "cuda",
+            "source": "dvbt_tpu_torch/csrc/ring.cu",
+            "replaces": "dvbt_tpu/parallel/ring.py:30",
+            "launches": res["launches"]["ring_shift"],
+            "max_abs_err": res["k4_err"], "ms": iq["k4"],
+            "plain_ms": iq["plain"], "bound_ms": t_bound,
+            "bound_by": by, "library_ms": None}
 
 
 def main() -> None:
@@ -470,6 +521,9 @@ def main() -> None:
               f"{times[name][0]:.3f} ms, plain {times[name][1]:.3f} ms "
               f"({card})", flush=True)
 
+    # --- 7. parallel: 4 ranks on the card, K4 and the time-sharded path ---
+    k4_entry = parallel_phase(card)
+
     imported = sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "dvbt_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")
@@ -506,6 +560,7 @@ def main() -> None:
               "dvbt_tpu_torch/csrc/viterbi.cu",
               "dvbt_tpu/kernels/viterbi_pallas.py:71",
               blk_launches["viterbi_depunct"], k3_err),
+        k4_entry,
     ]
     for k in kernels:
         print(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms "

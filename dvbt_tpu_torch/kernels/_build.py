@@ -31,6 +31,15 @@ _SIGNATURES = {
     "dvbt_byte_coder": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dvbt_viterbi_punct": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dvbt_viterbi_depunct": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K4, the halo ring (csrc/ring.cu); void** outputs are passed by byref
+    "dvbt_ring_alloc": [_I, _I, _P],
+    "dvbt_ring_free": [_P],
+    "dvbt_ring_get_handle": [_P, _P],
+    "dvbt_ring_open_handle": [_I, _P, _P],
+    "dvbt_ring_close_handle": [_P],
+    "dvbt_ring_error_word": [_P, _P],
+    "dvbt_ring_free_host": [_P],
+    "dvbt_ring_shift": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
 }
 
 

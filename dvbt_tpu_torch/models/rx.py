@@ -34,7 +34,9 @@ from ..ops import (
 _NOT_PORTED = {("demap", "soft"): 19}
 
 
-def _check(mode: DvbtMode, **options) -> None:
+def check_ported(mode: DvbtMode, **options) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for a mode or a
+    receiver option that is not ported yet."""
     if mode.hierarchical:
         raise NotImplementedError(
             "hierarchical modes are not ported yet (ROADMAP queue 1, item 20)")
@@ -49,7 +51,7 @@ def init_rx_state(mode: DvbtMode, n_mux: int, device) -> dict:
     """Carried RX state, one row per mux: outer-deinterleaver tail, Viterbi
     tail, descrambler phase lock, and the channel estimator's 3-symbol pilot
     history."""
-    _check(mode)
+    check_ported(mode)
     ov = viterbi.effective_overlap(mode.code_rate)
     tail, valid = reference_signals.init_time_channel_state(mode, n_mux,
                                                             device)
@@ -76,7 +78,7 @@ def make_receiver(mode: DvbtMode, device, n_frames: int | None = None,
     (n_mux, n_frames, 68), tps_frame int32 (n_mux, n_frames) and mer_db
     float32 (n_mux,).  ``metrics="min"`` leaves out the TPS decode and the
     MER estimate, as the flagship step does."""
-    _check(mode, demap=demap)
+    check_ported(mode, demap=demap)
     if chan_est not in ("time", "freq"):
         raise ValueError(f"chan_est={chan_est!r} is not 'time' or 'freq'")
     if metrics not in ("full", "min"):

@@ -13,6 +13,8 @@ field by field.
 TX leaves: dispersal_phase, outer_tail, coder_state, frame_idx.
 RX leaves: deint_tail, viterbi {x, y, xm, ym}, descr_phase, descr_locked,
 chan_tail (complex), chan_valid.
+The time-sharded loopback's carry (parallel/time_sharding.py) goes across
+with ``carry_from_jax`` / ``carry_to_jax``.
 """
 
 from __future__ import annotations
@@ -74,3 +76,29 @@ def tx_state_from_jax(jstate: dict, device) -> dict:
 def rx_state_from_jax(jstate: dict, device) -> dict:
     """Batched JAX RX state (numpy leaves, leading mux axis) -> tensors."""
     return _from_jax(jstate, _RX_KEYS, device)
+
+
+def carry_from_jax(jcarry, device) -> tuple:
+    """The JAX time-sharded loopback's carry (prev_pk (12, 188) uint8,
+    prev_iq (H * symbol_len,) complex64, step_idx int32), as numpy arrays
+    or scalars -> the port's carry (tensors on ``device``, int step)."""
+    prev_pk, prev_iq, step_idx = jcarry
+    if isinstance(prev_pk, (tuple, list)):
+        raise NotImplementedError(
+            "hierarchical state is not ported yet (ROADMAP queue 1, item 20)")
+    pk = np.array(prev_pk)              # a writable copy of each leaf
+    iq = np.array(prev_iq)
+    if pk.dtype != np.uint8 or pk.ndim != 2 or iq.ndim != 1:
+        raise ValueError(f"carry leaves {pk.dtype}{pk.shape}, "
+                         f"{iq.dtype}{iq.shape}")
+    return (torch.as_tensor(pk, device=device),
+            torch.as_tensor(iq.astype(np.complex64), device=device),
+            int(step_idx))
+
+
+def carry_to_jax(carry) -> tuple:
+    """The port's time-sharded carry -> numpy (prev_pk uint8, prev_iq
+    complex64, np.int32 step_idx), the leaves of the JAX carry."""
+    prev_pk, prev_iq, step_idx = carry
+    return (prev_pk.cpu().numpy(), prev_iq.cpu().numpy(),
+            np.int32(step_idx))

@@ -34,14 +34,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'dvbt_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules\n"
-        "           if k.startswith('dvbt_tpu_torch')]))\n")
+        "print(' '.join(k for k in sys.modules\n"
+        "               if k.startswith('dvbt_tpu_torch')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 30          # every module imported
+    loaded = set(proc.stdout.split())
+    assert len(loaded) >= 35                       # every module imported
+    assert {f"dvbt_tpu_torch.parallel.{m}" for m in
+            ("multihost", "ring", "sharding", "time_sharding")} <= loaded
 
 
 # the mode grid of tests/test_mode_grid.py in both transmission modes, and
