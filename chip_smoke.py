@@ -4,8 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from dvbt_tpu_torch/csrc, checks each against its
-plain PyTorch version on the card (K1 and K3, the Viterbi decoders, and K2,
-the inner coder), checks the 8K transmitter against the golden snapshot,
+plain PyTorch version on the card (K1 and K3, the Viterbi decoders, on hard
+and graded soft values at every rate, an all-erasure block, blocks shorter
+than one window body, a ragged last window, a body whose decisions spill
+to device memory, 1 to 8 muxes, the flagship and time-sharded shapes; and
+K2, the inner coder), checks the 8K transmitter
+against the golden snapshot,
 then drives the flagship slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32;
 8 muxes x 4 frames per step) TX -> RX and checks that every mux returns
 its transport stream byte-exact.  Then it drives the block-level receive
@@ -43,7 +47,14 @@ RATES = ("1/2", "2/3", "3/4", "5/6", "7/8")
 # data sheet gives no int32 rate
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 64 * 132 * 1.98e9
-OPS_PER_STATE_STEP = 4   # Viterbi ACS: two adds, a compare, a select
+# Viterbi ACS: two adds and one min that also gives the decision a
+# state-step (Hopper's DPX VIMNMX keeps the smaller sum and sets a
+# predicate).  Path-metric differences fit 16 bits, so the fastest ACS
+# arithmetic is the packed 16-bit rate: two halves per int32 lane operation
+# (VIMNMX.S16x2).  The bound counts the same operations whether a kernel
+# packs or not.
+OPS_PER_STATE_STEP = 3
+PACKED16_OPS_S = 2 * INT32_OPS_S
 
 
 def card_line() -> str:
@@ -59,35 +70,22 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def event_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps runs, by CUDA events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_s: float = INT32_OPS_S) -> tuple[float, str]:
     """(least ms the card could take, what sets it): each input read and
-    each output written once over HBM, or the operations at the int32
-    peak, whichever is longer."""
+    each output written once over HBM, or the operations at the card's
+    peak rate for their type (ops_s), whichever is longer."""
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = n_ops / INT32_OPS_S * 1e3
+    t_ops = n_ops / ops_s * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def viterbi_ops(n_mux: int, n_bits: int, body: int, ov: int) -> float:
+def viterbi_ops(n_mux: int, n_bits: int, body: int, ov: int,
+                per_state_step: int = OPS_PER_STATE_STEP) -> float:
     """ACS operations of the overlapped-window decode: windows x steps x
-    64 states x OPS_PER_STATE_STEP."""
+    64 states x per_state_step."""
     n_win = -(-n_bits // body)
-    return float(n_mux * n_win * (body + 2 * ov) * 64 * OPS_PER_STATE_STEP)
+    return float(n_mux * n_win * (body + 2 * ov) * 64 * per_state_step)
 
 
 def numpy_mother_code(bits, rate: str, order, period: int):
@@ -175,6 +173,7 @@ def main() -> None:
     from dvbt_tpu_torch.ops import viterbi as vops
     from dvbt_tpu_torch.utils import puncture
     from dvbt_tpu_torch.utils.cplx import cis
+    from dvbt_tpu_torch.viterbi_bench import event_ms, main_path_inputs
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2024)
@@ -222,116 +221,155 @@ def main() -> None:
     print(f"[K2] exact at all 5 rates over 2 blocks, and at 8 x {flag_bytes}"
           " bytes (plain + numpy reference)", flush=True)
 
-    # --- 3. K1 against its plain version ---------------------------------
+    # --- 3. K1 and K3 against their plain versions -----------------------
+    # every case exact; each case's largest |difference| goes into the
+    # kernels line
     gen = torch.Generator(device=dev).manual_seed(2025)
     zeros6 = torch.zeros(8, 6, dtype=torch.uint8, device=dev)
 
-    def k1_two_noisy_blocks(n_mux, n_bits, r, body, ov) -> int:
-        """Two blocks of hard soft values (0/15, 2% flipped, so ties are
-        common) through the decoder (K1) with its carried tail, each held
-        against the plain version on the same inputs; output bytes and
-        tail must be exact.  Returns the largest |difference|."""
+    def soft_coded(n_mux, n_bits, r, kind):
+        """Coded soft values of random info bits: "hard" is 0/15 with 2%
+        flipped (ties are common), "graded" the sent value 0/15 plus
+        integer noise -9..9 clipped to 0..15 (every branch metric 0..30)."""
+        info = torch.randint(0, 256, (n_mux, n_bits // 8), generator=gen,
+                             dtype=torch.uint8, device=dev)
+        _, bits = kcoder.byte_coder_plain(zeros6[:n_mux], info, r)
+        soft = bits.int() * 15
+        if kind == "hard":
+            flips = torch.rand(soft.shape, generator=gen, device=dev) < 0.02
+            soft = torch.where(flips, 15 - soft, soft)
+        else:
+            soft = soft + torch.randint(-9, 10, soft.shape, generator=gen,
+                                        device=dev, dtype=torch.int32)
+        return soft.clamp(0, 15).to(torch.uint8).contiguous()
+
+    def k1_blocks(n_mux, n_bits, r, body, ov, kind, n_blocks=2) -> int:
+        """Blocks of soft values through the decoder (K1) with its carried
+        tail, each held against the plain version on the same inputs;
+        output bytes and tail must be exact.  Returns the largest
+        |difference|."""
         dec = vops.make_viterbi_decoder(n_bits, r, body, ov)
         depunct = inner_coder.make_depuncture(n_bits, r)
         st_k = vops.init_state(n_mux, ov, dev)
         tail_p = torch.zeros(n_mux, 4, ov, dtype=torch.uint8, device=dev)
         err = 0
-        for blk in range(2):
-            info = torch.randint(0, 256, (n_mux, n_bits // 8), generator=gen,
-                                 dtype=torch.uint8, device=dev)
-            _, soft = kcoder.byte_coder_plain(zeros6[:n_mux], info, r)
-            soft = soft * 15
-            flips = torch.rand(soft.shape, generator=gen, device=dev) < 0.02
-            coded = torch.where(flips, 15 - soft, soft).contiguous()
+        for blk in range(n_blocks):
+            coded = soft_coded(n_mux, n_bits, r, kind)
             st_k, got = dec(st_k, coded)
             want = kvit.viterbi_punct_plain(coded, tail_p, n_bits, r, body)
             tail_p = torch.stack(depunct(coded), dim=-2)[..., -ov:]
             err = max(err, int((got.int() - want.int()).abs().max()))
-            require(torch.equal(got, want), f"K1 rate {r} body {body} "
-                    f"block {blk} differs from its plain version")
+            require(torch.equal(got, want), f"K1 {kind} rate {r} n_bits "
+                    f"{n_bits} body {body} block {blk} differs from its "
+                    "plain version")
             require(torch.equal(torch.stack([st_k[k] for k in
                                              ("x", "y", "xm", "ym")], -2),
                                 tail_p), f"K1 rate {r} tail differs")
         return err
 
-    for r in RATES:
-        n_bits = 8 * puncture.pattern(r).period * 480 * 4
-        k1_two_noisy_blocks(2, n_bits, r, *kvit.punct_geometry(r, 512, 96))
-    # the receiver's own geometry at the flagship shape
-    k1_err = k1_two_noisy_blocks(8, flag_bits, rate, vops.DEFAULT_BODY,
-                                 vops.effective_overlap(rate))
-    info = torch.as_tensor(rng.integers(0, 256, (8, flag_bytes),
-                                        dtype=np.uint8), device=dev)
-    _, coded = kcoder.byte_coder(state0, info, rate)
-    coded = (coded * 15).contiguous()
-    ov = vops.effective_overlap(rate)
-    tail0 = torch.zeros(8, 4, ov, dtype=torch.uint8, device=dev)
-    k1_out = kvit.viterbi_punct(coded, tail0, flag_bits, rate,
-                                vops.DEFAULT_BODY)
-    k1_plain = kvit.viterbi_punct_plain(coded, tail0, flag_bits, rate,
-                                        vops.DEFAULT_BODY)
-    k1_err = max(k1_err, int((k1_out.int() - k1_plain.int()).abs().max()))
-    require(k1_err == 0, "K1 differs from its plain version at the "
-                         "flagship shape")
-    require(torch.equal(k1_out, info), "K1 noiseless flagship decode wrong")
-    print(f"[K1] exact at all 5 rates over 2 noisy blocks, and over 2 noisy "
-          f"blocks of 8 x {flag_bits} bits at body {vops.DEFAULT_BODY}; "
-          f"decodes 8 x {flag_bits} noiseless bits", flush=True)
+    k1_cases = {}
+    for kind in ("hard", "graded"):
+        k1_cases[f"{kind}, 5 rates, body 512"] = max(
+            k1_blocks(2, 8 * puncture.pattern(r).period * 480 * 4, r,
+                      *kvit.punct_geometry(r, 512, 96), kind) for r in RATES)
+        # the receiver's own geometry at the flagship shape
+        k1_cases[f"{kind}, flagship 8 muxes"] = k1_blocks(
+            8, flag_bits, rate, vops.DEFAULT_BODY,
+            vops.effective_overlap(rate), kind)
+    ov78 = vops.effective_overlap("7/8")
+    k1_cases["graded, n_bits 448 < body, 1 and 3 muxes"] = max(
+        k1_blocks(m, 448, "7/8", vops.DEFAULT_BODY, ov78, "graded")
+        for m in (1, 3))
+    k1_cases["graded, ragged last window (5600 bits)"] = k1_blocks(
+        1, 5600, "7/8", vops.DEFAULT_BODY, ov78, "graded")
+    require(kvit.window_geometry(2, 12288, 4096, 128).spill,
+            "K1 at body 4096 keeps its decisions in shared memory")
+    k1_cases["graded, body 4096 (decisions spill), 2 muxes"] = k1_blocks(
+        2, 12288, rate, 4096, 128, "graded")
+    # the timed inputs: K1 at the flagship shape, K3 at the block path's
+    vin = main_path_inputs(dev)
+    require(vin.n_bits == flag_bits and vin.k3_body == kvit.auto_body(
+        flag_bits), "the timed Viterbi inputs are not the main path's shape")
+    k1_out = vin.k1()
+    k1_cases["noiseless, flagship 8 muxes"] = int(
+        (k1_out.int() - vin.k1_plain().int()).abs().max())
+    require(torch.equal(k1_out, vin.info),
+            "K1 noiseless flagship decode wrong")
+    k1_err = max(k1_cases.values())
+    require(k1_err == 0, f"K1 differs from its plain version: {k1_cases}")
+    print(f"[K1] exact against its plain version in every case "
+          f"{k1_cases}; decodes 8 x {flag_bits} noiseless bits", flush=True)
 
-    # --- 3b. K3 against its plain version --------------------------------
-    def k3_two_noisy_blocks(n_mux, n_bits, r, body, ov) -> int:
-        """Two blocks of depunctured hard soft values (0/15, 2% of the sent
-        bits flipped) through the viterbi_decoder block (K3) with its
-        carried state, each held against the plain version on the same
-        inputs and tail; bits and state must be exact."""
+    def k3_blocks(n_mux, n_bits, r, body, ov, kind, n_blocks=2) -> int:
+        """Blocks of depunctured soft values through the viterbi_decoder
+        block (K3) with its carried state, each held against the plain
+        version on the same inputs and tail; bits and state must be exact.
+        "hard"/"graded" as soft_coded (graded also puts noise where the
+        mask says the bit was not sent); "erasure": random values, every
+        mask 0, so every metric ties and the bits must all be 0; "random":
+        random values and masks (any n_bits)."""
         dec = kvit.make_viterbi_decoder(n_bits, body, ov)
-        depunct = inner_coder.make_depuncture(n_bits, r)
         st_k = kvit.init_state(n_mux, dev, ov)
         tail_p = torch.zeros(n_mux, 4, ov, dtype=torch.uint8, device=dev)
         err = 0
-        for blk in range(2):
-            info = torch.randint(0, 256, (n_mux, n_bits // 8), generator=gen,
-                                 dtype=torch.uint8, device=dev)
-            _, soft = kcoder.byte_coder_plain(zeros6[:n_mux], info, r)
-            soft = soft * 15
-            flips = torch.rand(soft.shape, generator=gen, device=dev) < 0.02
-            coded = torch.where(flips, 15 - soft, soft)
-            steps = [s.contiguous() for s in depunct(coded)]
+        for blk in range(n_blocks):
+            if kind in ("hard", "graded"):
+                steps = [s.contiguous() for s in inner_coder.make_depuncture(
+                    n_bits, r)(soft_coded(n_mux, n_bits, r, kind))]
+                if kind == "graded":     # 0 where not sent: add noise
+                    for s, known in zip(steps[:2], steps[2:]):
+                        s.add_(torch.randint(0, 16, s.shape, generator=gen,
+                                             device=dev, dtype=torch.uint8)
+                               * (1 - known))
+            else:
+                steps = [torch.randint(0, 16 if k < 2 else 2,
+                                       (n_mux, n_bits), generator=gen,
+                                       dtype=torch.uint8, device=dev)
+                         for k in range(4)]
+                if kind == "erasure":
+                    steps[2].zero_()
+                    steps[3].zero_()
             st_k, got = dec(st_k, *steps)
             want = kvit.viterbi_depunct_plain(*steps, tail_p, body)
-            tail_p = torch.stack(steps, dim=-2)[..., -ov:].contiguous()
+            tail_p = torch.cat([tail_p, torch.stack(steps, dim=-2)],
+                               dim=-1)[..., -ov:].contiguous()
             err = max(err, int((got.int() - want.int()).abs().max()))
-            require(torch.equal(got, want), f"K3 rate {r} body {body} "
-                    f"block {blk} differs from its plain version")
+            require(torch.equal(got, want), f"K3 {kind} n_bits {n_bits} "
+                    f"body {body} block {blk} differs from its plain version")
+            require(kind != "erasure" or not got.any(),
+                    "K3 all-erasure block decoded a 1 bit")
             require(torch.equal(torch.stack([st_k[k] for k in
                                              ("x", "y", "xm", "ym")], -2),
-                                tail_p), f"K3 rate {r} state differs")
+                                tail_p), f"K3 {kind} state differs")
         return err
 
-    for r in RATES:
-        n_bits = 8 * puncture.pattern(r).period * 480 * 4
-        k3_two_noisy_blocks(2, n_bits, r, 512, 96)
     k3_body = kvit.auto_body(flag_bits)
-    k3_err = k3_two_noisy_blocks(8, flag_bits, rate, k3_body,
-                                 kvit.DEFAULT_OVERLAP)
-    info_bits = torch.as_tensor(rng.integers(0, 2, (8, flag_bits),
-                                             dtype=np.uint8), device=dev)
-    _, k3_coded = kcoder.byte_coder(state0, torch.as_tensor(
-        np.packbits(info_bits.cpu().numpy(), axis=-1), device=dev), rate)
-    k3_steps = [s.contiguous() for s in
-                inner_coder.make_depuncture(flag_bits, rate)(k3_coded * 15)]
-    k3_tail = torch.zeros(8, 4, kvit.DEFAULT_OVERLAP, dtype=torch.uint8,
-                          device=dev)
-    k3_out = kvit.viterbi_depunct(*k3_steps, k3_tail, k3_body)
-    k3_plain = kvit.viterbi_depunct_plain(*k3_steps, k3_tail, k3_body)
-    k3_err = max(k3_err, int((k3_out.int() - k3_plain.int()).abs().max()))
-    require(k3_err == 0, "K3 differs from its plain version at the "
-                         "flagship block shape")
+    k3_cases = {}
+    for kind in ("hard", "graded"):
+        k3_cases[f"{kind}, 5 rates, body 512"] = max(
+            k3_blocks(2, 8 * puncture.pattern(r).period * 480 * 4, r, 512,
+                      96, kind) for r in RATES)
+        # at 8K, body 4096: 4352 steps a window, 17 renormalisations
+        k3_cases[f"{kind}, flagship 8 muxes, body {k3_body}"] = k3_blocks(
+            8, flag_bits, rate, k3_body, kvit.DEFAULT_OVERLAP, kind)
+    k3_cases["all-erasure, 2 muxes"] = k3_blocks(
+        2, 6144, rate, 512, 96, "erasure")
+    k3_cases["random, n_bits 100 < body, 1 and 8 muxes"] = max(
+        k3_blocks(m, 100, rate, 1024, 128, "random") for m in (1, 8))
+    k3_cases["random, ragged last window (5000 bits)"] = k3_blocks(
+        1, 5000, rate, 1024, 128, "random")
+    k3_cases["graded, time-sharded halo (24192 bits, body 1024)"] = \
+        k3_blocks(1, 24192, rate, 1024, kvit.DEFAULT_OVERLAP, "graded")
+    k3_out = vin.k3()
+    k3_cases["noiseless, flagship 8 muxes"] = int(
+        (k3_out.int() - vin.k3_plain().int()).abs().max())
+    info_bits = torch.as_tensor(np.unpackbits(vin.info.cpu().numpy(),
+                                              axis=-1), device=dev)
     require(torch.equal(k3_out, info_bits), "K3 noiseless decode wrong")
-    print(f"[K3] exact at all 5 rates over 2 noisy blocks (body 512, overlap"
-          f" 96), and over 2 noisy blocks of 8 x {flag_bits} bits at body "
-          f"{k3_body}, overlap {kvit.DEFAULT_OVERLAP}; decodes 8 x "
-          f"{flag_bits} noiseless bits", flush=True)
+    k3_err = max(k3_cases.values())
+    require(k3_err == 0, f"K3 differs from its plain version: {k3_cases}")
+    print(f"[K3] exact against its plain version in every case "
+          f"{k3_cases}; decodes 8 x {flag_bits} noiseless bits", flush=True)
 
     # --- 4. transmitter against the golden 8K snapshot -------------------
     want = np.load(ROOT / "tests" / "golden" / "tx_8k_64qam_23.npz")
@@ -483,19 +521,6 @@ def main() -> None:
     def k2_plain():
         kcoder.byte_coder_plain(state0, stream, rate)
 
-    def k1():
-        kvit.viterbi_punct(coded, tail0, flag_bits, rate, vops.DEFAULT_BODY)
-
-    def k1_plain():
-        kvit.viterbi_punct_plain(coded, tail0, flag_bits, rate,
-                                 vops.DEFAULT_BODY)
-
-    def k3():
-        kvit.viterbi_depunct(*k3_steps, k3_tail, k3_body)
-
-    def k3_plain():
-        kvit.viterbi_depunct_plain(*k3_steps, k3_tail, k3_body)
-
     for _ in range(2):
         blk_rx(blk_state, capture)
     torch.cuda.synchronize()
@@ -509,9 +534,10 @@ def main() -> None:
 
     times = {}
     for name, kern, plain, reps, preps in (("coder", k2, k2_plain, 20, 5),
-                                           ("viterbi", k1, k1_plain, 5, 1),
-                                           ("viterbi_depunct", k3, k3_plain,
-                                            3, 1)):
+                                           ("viterbi", vin.k1, vin.k1_plain,
+                                            5, 1),
+                                           ("viterbi_depunct", vin.k3,
+                                            vin.k3_plain, 3, 1)):
         p1 = event_ms(plain, preps)
         a = event_ms(kern, reps)
         b = event_ms(kern, reps)
@@ -530,42 +556,58 @@ def main() -> None:
     # bounds at the timed shapes: each input read and each output written
     # once; ACS operations for the Viterbi decoders; K2's taps as
     # bit-sliced int32 XORs (5 per coded bit, 32 bits a word)
-    n_c = coded.numel()
+    k1_shape = (8, flag_bits, vin.k1_body, vin.k1_tail.shape[-1])
+    k3_shape = (8, flag_bits, vin.k3_body, vin.k3_tail.shape[-1])
+    k1_bytes = vin.coded.numel() + k1_out.numel() + vin.k1_tail.numel()
+    k1_ops = viterbi_ops(*k1_shape)
+    k3_bytes = (sum(t.numel() for t in vin.k3_steps) + vin.k3_tail.numel()
+                + k3_out.numel())
+    k3_ops = viterbi_ops(*k3_shape)
     bounds = {
-        "viterbi": bound(n_c + k1_out.numel() + tail0.numel(),
-                         viterbi_ops(8, flag_bits, vops.DEFAULT_BODY, ov)),
+        "viterbi": bound(k1_bytes, k1_ops, PACKED16_OPS_S),
         "coder": bound(stream.numel() + k2_out.numel() + state0.numel(),
                        k2_out.numel() * 5 / 32),
-        "viterbi_depunct": bound(
-            sum(t.numel() for t in k3_steps) + k3_tail.numel()
-            + k3_out.numel(),
-            viterbi_ops(8, flag_bits, k3_body, kvit.DEFAULT_OVERLAP)),
+        "viterbi_depunct": bound(k3_bytes, k3_ops, PACKED16_OPS_S),
     }
+    for key, n_bytes, n_ops, shape in (
+            ("viterbi", k1_bytes, k1_ops, k1_shape),
+            ("viterbi_depunct", k3_bytes, k3_ops, k3_shape)):
+        print(f"[bound] {key}: {n_ops:.4g} ACS operations, "
+              f"{bounds[key][0]:.4f} ms at the packed 16-bit rate; with a "
+              f"separate compare and select (4 operations a state-step) at "
+              f"the int32 rate "
+              f"{bound(n_bytes, viterbi_ops(*shape, 4))[0]:.4f} ms",
+              flush=True)
 
-    def entry(name, key, source, replaces, launches_, err):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches_,
-                "max_abs_err": err, "ms": times[key][0],
-                "plain_ms": times[key][1], "bound_ms": bounds[key][0],
-                "bound_by": bounds[key][1], "library_ms": None}
+    def entry(name, key, source, replaces, launches_, err, cases=None):
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches_,
+             "max_abs_err": err, "ms": times[key][0],
+             "plain_ms": times[key][1], "bound_ms": bounds[key][0],
+             "bound_by": bounds[key][1], "library_ms": None}
+        if cases is not None:
+            e["cases"] = cases      # max_abs_err of each parity case
+        return e
 
     kernels = [
         entry("viterbi_punct", "viterbi", "dvbt_tpu_torch/csrc/viterbi.cu",
               "dvbt_tpu/kernels/viterbi_pallas.py:238", launches["viterbi"],
-              k1_err),
+              k1_err, k1_cases),
         entry("byte_coder", "coder", "dvbt_tpu_torch/csrc/coder.cu",
               "dvbt_tpu/kernels/coder_pallas.py:44", launches["coder"],
               k2_err),
         entry("viterbi_depunct", "viterbi_depunct",
               "dvbt_tpu_torch/csrc/viterbi.cu",
               "dvbt_tpu/kernels/viterbi_pallas.py:71",
-              blk_launches["viterbi_depunct"], k3_err),
+              blk_launches["viterbi_depunct"], k3_err, k3_cases),
         k4_entry,
     ]
     for k in kernels:
         print(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), kernel at {k['bound_ms'] / k['ms']:.1%} "
               f"of it ({card})", flush=True)
+        require(k["bound_ms"] <= k["ms"],
+                f"{k['name']} reads above its bound: {k}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

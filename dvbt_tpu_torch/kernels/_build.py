@@ -29,8 +29,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 # lengths as int64 — ctypes would otherwise pass 32-bit ints)
 _SIGNATURES = {
     "dvbt_byte_coder": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "dvbt_viterbi_punct": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "dvbt_viterbi_depunct": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dvbt_viterbi_punct": [_P, _P, _P, *[_I] * 13, _P, _P],
+    "dvbt_viterbi_depunct": [_P, _P, _P, _P, _P, _P, *[_I] * 9, _P, _P],
     # K4, the halo ring (csrc/ring.cu); void** outputs are passed by byref
     "dvbt_ring_alloc": [_I, _I, _P],
     "dvbt_ring_free": [_P],

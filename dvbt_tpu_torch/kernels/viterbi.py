@@ -18,15 +18,32 @@ branch metric; the decision is c1 < c0 (ties to the even predecessor); the
 traceback starts at the lowest-index minimum state.
 
 The CUDA kernels are in ``csrc/viterbi.cu`` and share their add-compare-
-select, decision packing and traceback: one 64-thread block per window, one
-thread per state, path metrics in registers exchanged through shared memory,
-decisions packed by ``__ballot_sync`` into two words a step (the layout of
-``_pack_states``), single-thread traceback.  On the H100 they are bound by
-latency: a barrier per ACS step, then a chain of dependent shared-memory
-reads in the traceback; the speed comes from the number of windows
-resident per SM (12 bytes of shared memory a step: ~15 KB a window for K1
-at body 1024, ~51 KB for K3 at body 4096).  Their least time is set by
-the ACS operations (~4 int32 operations a state-step), not by bytes.
+select, decision packing and traceback.  One warp decodes one window, with
+no block barrier: lane l owns states l and l + 32 (one butterfly), their
+path metrics packed into one 32-bit word of 16-bit halves, fetched from the
+predecessors' lanes by two shuffles and compared by one Hopper DPX
+``__vibmin_s16x2`` (the decision is c1 < c0), renormalised every 256 steps.
+Each lane reads one step of the next 32 with coalesced loads and hands the
+step's packed branch metrics to the warp by shuffle, so only the decisions
+live in shared memory: two ``__ballot_sync`` words a step (the layout of
+``_pack_states``), 8 bytes, ~9 KB a window for K1 at body 1024 and ~34 KB
+for K3 at body 4096.  The traceback keeps the path in a shift register
+(the state in its low 6 bits, the decoded bits above them) and loads each
+step's decision pair at an address that depends only on the step, so its
+dependent chain is a shift and a logic operation a step.  What bounds them
+on the H100 is the sequential ACS, 13 warp instructions a step, 9 of them
+on the integer pipe (~4.5 SM clocks a window-step where the bound allows
+1.5): K1 (24 windows resident per SM) is bound so.  K3's decisions
+at body 4096 would leave 6 windows per SM, too few to hide the latency of
+a step's chain, so they spill to device memory through a 32-step ring,
+and K3 runs 40 windows per SM (its registers capped for 5 blocks of 8).
+Resident decisions stay where they fit: on the H100 they beat a spill at
+24 windows an SM (K1 at the flagship shape by ~2%, the time-sharded
+halo's 24 windows by a quarter or more) and lose at 6 (K3 at body 4096,
+1.6x).  ``window_geometry`` computes the launch (windows per block, shared
+bytes a window, resident or spilled decisions, the blocks per SM it counts
+on, the grid) and checks the shared-memory budget; the launcher refuses a
+kernel whose registers allow fewer blocks than counted on.
 
 The tail is a (..., 4, overlap) uint8 tensor with rows (x, y, x_known,
 y_known) — the ``{x, y, xm, ym}`` state of the JAX package, stacked.  Its
@@ -40,6 +57,7 @@ tensors the kernel (or an error).  ``launches`` counts K1's launches,
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -55,6 +73,98 @@ SOFT_MAX = 15
 
 launches = 0           # K1 launches
 depunct_launches = 0   # K3 launches
+
+# H100 limits (CUDA programming guide, compute capability 9.0)
+SMEM_PER_SM = 228 * 1024       # an SM's shared memory for its blocks
+SMEM_PER_BLOCK = 227 * 1024    # the most one block can take
+SMEM_BLOCK_RESERVED = 1024     # the runtime's share of each resident block
+MAX_BLOCKS_PER_SM = 32
+MAX_WARPS_PER_SM = 64
+MAX_WARPS_PER_BLOCK = 8        # the kernels' __launch_bounds__(256, ...)
+SMEM_STATIC = 4 * MAX_WARPS_PER_BLOCK  # the kernels' __shared__ best[]
+# the warps per SM the kernels' registers are capped for, by spill: their
+# __launch_bounds__ minimum blocks (kResidentMinBlocks, kSpillMinBlocks)
+# times 8 warps
+REG_WARPS_PER_SM = {False: 3 * MAX_WARPS_PER_BLOCK,
+                    True: 5 * MAX_WARPS_PER_BLOCK}
+# Fewer windows than this resident per SM with the decisions in shared
+# memory: spill them to device memory instead.  A step's dependent chain
+# (~40 clocks) over its issue (~4.5 clocks a window-step) needs ~9 windows
+# an SM; measured on the H100, resident wins at 24 and loses at 6 (the
+# port's shapes give one or the other), and 12 leaves a margin over 9.
+SPILL_BELOW = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowGeometry:
+    """The launch of K1 or K3: one warp per window, ``warps`` windows a
+    block.  The traceback reads the decisions of steps overlap + 6 .. L-1;
+    a window keeps the pair (8 bytes) of each step from ``skip`` (overlap
+    + 6 rounded down to 32) on, in its shared memory or, when ``spill``,
+    in device memory through a 32-step ring in shared memory; then its
+    body's bits, packed 32 to a word."""
+    n_win: int          # windows per mux
+    skip: int
+    spill: bool
+    window_bytes: int   # shared bytes of one window, 8 mod 128
+    warps: int          # windows (warps) per block
+    grid: int           # blocks
+    resident: int       # windows per SM that shared memory allows
+
+    blocks_per_sm: int  # = resident // warps, checked by the launcher
+
+    def scratch_bytes(self, n_mux: int, body: int, overlap: int) -> int:
+        """Device memory for the spilled decisions (0 if resident)."""
+        steps = body + 2 * overlap - self.skip
+        return 8 * n_mux * self.n_win * steps if self.spill else 0
+
+
+def window_geometry(n_mux: int, n_bits: int, body: int,
+                    overlap: int) -> WindowGeometry:
+    """Geometry of the decode of n_mux streams of n_bits steps in windows
+    of body + 2*overlap steps.  Windows per block are chosen for the most
+    windows resident on an SM, by shared memory, warps and the kernels'
+    register cap, then the most a block (one warp traces back all of a
+    block's windows).  The decisions stay in shared memory unless that
+    leaves fewer than SPILL_BELOW windows resident per SM."""
+    if n_bits <= 0 or body <= 0 or overlap < 5:
+        raise ValueError(f"n_bits={n_bits}, body={body}, overlap={overlap}: "
+                         "the kernels take overlap >= 5 (their traceback "
+                         "reads a body word 5 steps after its first step)")
+    n_win = -(-n_bits // body)
+    skip = (overlap + 6) // 32 * 32
+    words = 4 * -(-body // 32)
+
+    def window_bytes(spilled):
+        # 8 mod 128: the traceback's lanes read one step of each window
+        # of the block, and this stride puts them in different banks
+        steps = 32 if spilled else body + 2 * overlap - skip
+        need = 8 * steps + words
+        return need + (8 - need) % 128
+
+    def resident(w, wb, spilled):
+        per_block = w * wb + SMEM_STATIC
+        if per_block > SMEM_PER_BLOCK:
+            return 0
+        return w * min(SMEM_PER_SM // (per_block + SMEM_BLOCK_RESERVED),
+                       MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM // w,
+                       REG_WARPS_PER_SM[spilled] // w)
+
+    def best(spilled):
+        wb = window_bytes(spilled)
+        w = max(range(1, MAX_WARPS_PER_BLOCK + 1),
+                key=lambda w: (resident(w, wb, spilled), w))
+        return wb, w, resident(w, wb, spilled)
+
+    wb, warps, res = best(False)
+    spill = res < SPILL_BELOW
+    if spill:
+        wb, warps, res = best(True)
+    if res == 0:
+        raise ValueError(f"window {body}+2*{overlap} needs {wb} shared "
+                         f"bytes, over the {SMEM_PER_BLOCK} a block can take")
+    return WindowGeometry(n_win, skip, spill, wb, warps,
+                          -(-n_mux * n_win // warps), res, res // warps)
 
 
 def punct_geometry(rate: str, body: int, overlap: int) -> tuple[int, int]:
@@ -87,8 +197,8 @@ def _trellis_parity() -> tuple[tuple[int, ...], tuple[int, ...]]:
 def _windows(steps, tail, n_bits, body):
     """Stage every window's steps: (x, y, xm, ym) int32 (B, L) each, B =
     windows of all leading indices, from the four (..., n_bits) step
-    streams over [tail | block | erasure pad]; the plain-version image of
-    the kernels' shared-memory staging."""
+    streams over [tail | block | erasure pad]: the steps that the kernels'
+    lanes read, 32 at a time, for each window."""
     ov = tail.shape[-1]
     dev = tail.device
     lead = tail.shape[:-2]
@@ -141,6 +251,16 @@ def _decode_windows(wx, wy, wxm, wym, ov, body):
     return bits
 
 
+def _scratch(geo: WindowGeometry, n_mux: int, body: int, ov: int, device):
+    """Device memory for spilled decisions, or None."""
+    n = geo.scratch_bytes(n_mux, body, ov)
+    return torch.empty(n, dtype=torch.uint8, device=device) if n else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def viterbi_punct_plain(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
                         rate: str, body: int) -> torch.Tensor:
     """coded (..., n_c) uint8, tail (..., 4, overlap) uint8 ->
@@ -175,17 +295,20 @@ def viterbi_punct(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
             f"viterbi_punct: coded {tuple(coded.shape)} / tail "
             f"{tuple(tail.shape)} do not fit n_bits={n_bits} rate={rate} "
             f"body={body}")
-    if 12 * (body + 2 * ov) > 200 * 1024:
-        raise ValueError(f"viterbi_punct: window {body}+2*{ov} exceeds the "
-                         "kernel's shared-memory budget")
+    if n_bits + body + 2 * ov >= 2 ** 31:
+        raise ValueError(f"viterbi_punct: n_bits={n_bits} is past the "
+                         "kernel's int32 positions")
     n_mux = coded.numel() // n_c
+    geo = window_geometry(n_mux, n_bits, body, ov)
     out = torch.empty(coded.shape[:-1] + (n_bits // 8,), dtype=torch.uint8,
                       device=coded.device)
     rank_packed = sum((r + 1) << (4 * i) for i, r in enumerate(rank))
     lib = _build.library()
+    scratch = _scratch(geo, n_mux, body, ov, coded.device)
     code = lib.dvbt_viterbi_punct(
         coded.data_ptr(), tail.data_ptr(), out.data_ptr(), n_mux, n_c,
-        n_bits, body, ov, period, keep, rank_packed,
+        n_bits, body, ov, period, keep, rank_packed, geo.grid, geo.warps,
+        geo.window_bytes, geo.skip, geo.blocks_per_sm, _ptr(scratch),
         torch.cuda.current_stream(coded.device).cuda_stream)
     _build.check(code, "dvbt_viterbi_punct")
     global launches
@@ -251,16 +374,22 @@ def viterbi_depunct(x: torch.Tensor, y: torch.Tensor, xm: torch.Tensor,
         raise ValueError(
             f"viterbi_depunct: x/y/xm/ym {[tuple(t.shape) for t in steps]} "
             f"/ tail {tuple(tail.shape)} / body {body} do not fit")
-    if 12 * (body + 2 * ov) > 200 * 1024:
-        raise ValueError(f"viterbi_depunct: window {body}+2*{ov} exceeds the "
-                         "kernel's shared-memory budget")
     n_bits = x.shape[-1]
+    if n_bits + body + 2 * ov >= 2 ** 31:
+        raise ValueError(f"viterbi_depunct: n_bits={n_bits} is past the "
+                         "kernel's int32 positions")
     out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if out.numel() == 0:
+        return out
+    n_mux = x.numel() // n_bits
+    geo = window_geometry(n_mux, n_bits, body, ov)
     lib = _build.library()
+    scratch = _scratch(geo, n_mux, body, ov, x.device)
     code = lib.dvbt_viterbi_depunct(
         x.data_ptr(), y.data_ptr(), xm.data_ptr(), ym.data_ptr(),
-        tail.data_ptr(), out.data_ptr(), x.numel() // max(n_bits, 1), n_bits,
-        body, ov, torch.cuda.current_stream(x.device).cuda_stream)
+        tail.data_ptr(), out.data_ptr(), n_mux, n_bits, body, ov, geo.grid,
+        geo.warps, geo.window_bytes, geo.skip, geo.blocks_per_sm,
+        _ptr(scratch), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "dvbt_viterbi_depunct")
     global depunct_launches
     depunct_launches += 1

@@ -106,6 +106,50 @@ def test_k3_plain_matches_pallas_and_jnp(rate, n_bits, flips):
                                           np.asarray(sj[k]))
 
 
+@pytest.mark.parametrize("rate,n_bits", [("1/2", 4096), ("2/3", 6144),
+                                         ("7/8", 7168)])
+def test_k3_plain_matches_pallas_and_jnp_soft_input(rate, n_bits):
+    """Graded soft values: x and y are the sent value 0/15 plus integer
+    noise clipped to 0..15, also where the mask says the bit was not sent
+    (the mask must silence it), so the branch metrics take every value
+    from 0 to 30.  Two blocks with the state carried from an all-zero
+    start: bits and state equal the Pallas kernel (interpret mode) and the
+    jnp decoder byte for byte; a second mux with the inverted stream rides
+    along."""
+    rng = np.random.default_rng(7)
+    coder = j_ic.make_inner_coder(n_bits, rate)
+    depunct = j_ic.make_depuncture(n_bits, rate)
+    dec_j = j_vit.make_viterbi_decoder(n_bits, body=512, overlap=96)
+    dec_p = j_vp.make_viterbi_decoder(n_bits, body=512, overlap=96,
+                                      interpret=True)
+    dec_t = t_kvit.make_viterbi_decoder(n_bits, body=512, overlap=96)
+    sj, sp = j_vit.init_state(96), j_vp.init_state(96)
+    st = t_kvit.init_state(2, "cpu", 96)
+    cst = j_ic.init_state()
+    for _ in range(2):
+        cst, coded = coder(cst, jnp.asarray(rng.integers(0, 2, n_bits,
+                                                         dtype=np.uint8)))
+        x, y, xm, ym = (np.array(np.broadcast_to(np.asarray(a), (n_bits,)),
+                                 dtype=np.int32)
+                        for a in depunct(coded * 15))
+        x, y = (np.clip(a + rng.integers(-9, 10, n_bits), 0, 15).astype(
+            np.uint8) for a in (x, y))
+        xm, ym = xm.astype(np.uint8), ym.astype(np.uint8)
+        args = tuple(jnp.asarray(a) for a in (x, y, xm, ym))
+        sj, want_j = dec_j(sj, *args)
+        sp, want_p = dec_p(sp, *args)
+        both = [torch.from_numpy(np.stack([a, b])) for a, b in
+                ((x, 15 - x), (y, 15 - y), (xm, xm), (ym, ym))]
+        st, got = dec_t(st, *both)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want_p))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want_j))
+        for k in st:
+            np.testing.assert_array_equal(st[k][0].numpy(),
+                                          np.asarray(sp[k]))
+            np.testing.assert_array_equal(st[k][0].numpy(),
+                                          np.asarray(sj[k]))
+
+
 def test_k3_plain_decodes_noiseless_exactly():
     """Default geometry (auto_body, overlap 128) at 3/4: the decoded bits
     are the sent bits, as the Pallas decoder's."""

@@ -26,6 +26,7 @@ from dvbt_tpu_torch.ops import ofdm as t_ofdm
 from dvbt_tpu_torch.ops import reed_solomon as t_rs
 from dvbt_tpu_torch.ops import reference_signals as t_ref
 from dvbt_tpu_torch.ops import viterbi as t_vit
+from dvbt_tpu_torch.parallel import time_sharding as t_ts
 from dvbt_tpu_torch.utils import puncture as t_punct
 from dvbt_tpu_torch.utils.state import mode_from_jax as port_mode
 
@@ -213,6 +214,131 @@ def test_viterbi_plain_matches_pallas_and_jnp(rate, flips):
         for k in st:
             np.testing.assert_array_equal(st[k][0].numpy(), np.asarray(sj[k]))
             np.testing.assert_array_equal(st[k][0].numpy(), np.asarray(sp[k]))
+
+
+def _soft_blocks(rate, n_bits, n_blocks, seed):
+    """Coded graded soft streams of consecutive blocks from one encoder:
+    the sent value 0/15 plus integer noise, clipped to 0..15."""
+    rng = np.random.default_rng(seed)
+    coder = j_ic.make_inner_coder(n_bits, rate)
+    st = j_ic.init_state()
+    out = []
+    for _ in range(n_blocks):
+        st, coded = coder(st, jnp.asarray(rng.integers(0, 2, n_bits,
+                                                       dtype=np.uint8)))
+        soft = np.asarray(coded, np.int32) * 15 + rng.integers(
+            -9, 10, len(coded))
+        out.append(np.clip(soft, 0, 15).astype(np.uint8))
+    return out
+
+
+@pytest.mark.parametrize("rate", ["1/2", "2/3", "7/8"])
+def test_viterbi_plain_matches_pallas_and_jnp_soft_input(rate):
+    """Graded soft values over the whole 0..15 range, so the branch metrics
+    take every value from 0 to 30: K1's plain version == the Pallas
+    punctured decoder (interpret mode) == the jnp decoder, bytes and tail
+    exact over two blocks, the tail carried from a preceding block."""
+    period = len(tables.PUNCTURE[rate][0])
+    n_bits = 8 * period * 480
+    body, ov = t_kvit.punct_geometry(rate, 512, 96)
+    blocks = _soft_blocks(rate, n_bits, 3, 20 + RATES.index(rate))
+    depunct = j_ic.make_depuncture(n_bits, rate)
+    dec_j = j_vit.make_viterbi_decoder(n_bits, body=body, overlap=ov)
+    dec_p = j_vp.make_viterbi_decoder_punctured(
+        n_bits, rate, body=512, overlap=96, interpret=True, style="mxupack")
+    dec_t = t_vit.make_viterbi_decoder(n_bits, rate, body, ov)
+    x, y, xm, ym = depunct(jnp.asarray(blocks[0]))
+    sj = {"x": x[-ov:], "y": y[-ov:],
+          "xm": jnp.broadcast_to(xm, x.shape)[-ov:].astype(jnp.uint8),
+          "ym": jnp.broadcast_to(ym, y.shape)[-ov:].astype(jnp.uint8)}
+    sp = dict(sj)
+    st = {k: torch.from_numpy(np.array(v))[None] for k, v in sj.items()}
+    for blk in blocks[1:]:
+        st, got = dec_t(st, torch.from_numpy(blk)[None])
+        sj, want_j = _jnp_decode(dec_j, depunct, sj, blk)
+        sp, want_p = dec_p(sp, jnp.asarray(blk))
+        np.testing.assert_array_equal(got[0].numpy(), want_j)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want_p))
+        for k in st:
+            np.testing.assert_array_equal(st[k][0].numpy(), np.asarray(sj[k]))
+            np.testing.assert_array_equal(st[k][0].numpy(), np.asarray(sp[k]))
+
+
+def _port_viterbi_shapes(transmission):
+    """(n_bits, body, overlap) of every K1 and K3 decode the port runs in
+    one transmission mode: the receiver (K1, body 1024, the effective
+    overlap) and the viterbi_decoder block (K3, auto_body, overlap 128) at
+    one block and at 4 frames, and the time-sharded halo recompute (K3,
+    body 1024)."""
+    shapes = set()
+    for const in ("qpsk", "16qam", "64qam"):
+        for rate in RATES:
+            mode = port_mode(DvbtMode(transmission, const, rate))
+            for n_bits in {mode.packets_per_block * k * 204 * 8
+                           for k in (1, 4 // mode.frames_per_block or 1)}:
+                shapes.add((n_bits, t_vit.DEFAULT_BODY,
+                            t_vit.effective_overlap(rate)))
+                shapes.add((n_bits, t_kvit.auto_body(n_bits),
+                            t_kvit.DEFAULT_OVERLAP))
+            n_info = ((t_ts.rx_halo_symbols(mode) - t_ts.CHAN_WARMUP)
+                      * int(mode.stream_info_bits_per_symbol("hp")))
+            shapes.add((n_info, min(1024, n_info),
+                        t_vit.effective_overlap(rate)))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("transmission", ["2k", "8k"])
+def test_viterbi_window_geometry_fits_and_covers(transmission):
+    """Every launch of K1 and K3 the port makes fits the H100's shared
+    memory (227 KB a block, 228 KB an SM), holds each window's decisions
+    (or its 32-step ring when they spill to device memory) and body bits,
+    counts on no more resident warps than the kernels' registers allow,
+    and its grid covers every window exactly once."""
+    for n_bits, body, ov in _port_viterbi_shapes(transmission):
+        for n_mux in (1, 8):
+            g = t_kvit.window_geometry(n_mux, n_bits, body, ov)
+            n_win = -(-n_bits // body)
+            assert g.n_win == n_win
+            # the traceback reads steps ov + 6 .. L-1
+            assert g.skip % 32 == 0 and 0 <= g.skip <= ov + 6
+            steps = body + 2 * ov - g.skip
+            assert g.resident >= t_kvit.SPILL_BELOW
+            assert g.resident == g.blocks_per_sm * g.warps
+            assert g.resident <= t_kvit.REG_WARPS_PER_SM[g.spill]
+            assert g.scratch_bytes(n_mux, body, ov) == (
+                8 * n_mux * n_win * steps if g.spill else 0)
+            assert g.window_bytes % 128 == 8   # lanes of the traceback
+            assert g.window_bytes >= (8 * (32 if g.spill else steps)
+                                      + 4 * -(-body // 32))
+            per_block = g.warps * g.window_bytes + t_kvit.SMEM_STATIC
+            assert per_block <= t_kvit.SMEM_PER_BLOCK
+            assert (g.blocks_per_sm
+                    * (per_block + t_kvit.SMEM_BLOCK_RESERVED)
+                    <= t_kvit.SMEM_PER_SM)
+            assert 1 <= g.warps <= t_kvit.MAX_WARPS_PER_BLOCK
+            # warp k of block b decodes window b * warps + k, if it exists
+            ids = np.arange(g.grid * g.warps)
+            np.testing.assert_array_equal(ids[ids < n_mux * n_win],
+                                          np.arange(n_mux * n_win))
+            assert (g.grid - 1) * g.warps < n_mux * n_win
+
+
+def test_viterbi_window_geometry_spills_oversized_windows():
+    """A window whose decisions leave fewer than SPILL_BELOW windows an SM
+    spills them to device memory and runs as many windows as the spilled
+    kernel's registers allow; one whose body bits alone do not fit is
+    refused."""
+    g = t_kvit.window_geometry(1, 10 ** 6, 30_000, 128)
+    assert g.spill
+    assert g.warps * g.window_bytes <= t_kvit.SMEM_PER_BLOCK
+    assert g.resident == t_kvit.REG_WARPS_PER_SM[True]
+    # K3 at the 8K block shape: 6 windows an SM resident, 40 spilled
+    g = t_kvit.window_geometry(8, 6_580_224, 4096, 128)
+    assert g.spill and g.resident == 40 and g.blocks_per_sm == 5
+    with pytest.raises(ValueError, match="shared bytes"):
+        t_kvit.window_geometry(1, 10 ** 7, 2_000_000, 128)
+    with pytest.raises(ValueError, match="overlap >= 5"):
+        t_kvit.window_geometry(1, 1000, 100, 4)
 
 
 @pytest.mark.parametrize("rate", ["2/3", "7/8"])
