@@ -8,10 +8,12 @@ plain PyTorch version on the card (K1 and K3, the Viterbi decoders, on hard
 and graded soft values at every rate, an all-erasure block, blocks shorter
 than one window body, a ragged last window, a body whose decisions spill
 to device memory, 1 to 8 muxes, the flagship and time-sharded shapes; and
-K2, the inner coder), checks the 8K transmitter
-against the golden snapshot,
-then drives the flagship slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32;
-8 muxes x 4 frames per step) TX -> RX and checks that every mux returns
+K2, the inner coder, at every rate's 8K byte count, 1 to 8 muxes, rows
+that are not a multiple of 16 bytes, the time-sharded shape, two blocks
+with the carried state, and a numpy reference of the mother code), checks
+the 8K transmitter against the golden snapshot, then drives the flagship
+slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32; 8 muxes x 4 frames per
+step) TX -> RX and checks that every mux returns
 its transport stream byte-exact.  Then it drives the block-level receive
 path: 8 raw captures, each with its own delay, CFO and AWGN at 30 dB,
 through the registry's blocks from the synchronizer to the descrambler
@@ -19,10 +21,12 @@ through the registry's blocks from the synchronizer to the descrambler
 impairments, its TS byte-exact from the detected frame on, and its TPS
 bits.  Then timings, and the parallel package: 4 rank processes on the one
 card (spawned, gloo between them) check K4, the halo ring over CUDA IPC,
-against its plain send/recv version, run the dryrun at MODE_8K_UK (mux-DP
-over 4 x 2 muxes; the time-sharded loopback over 8 one-frame blocks, equal
-to the single-process streaming chain; the K4 halo path equal to the
-send/recv one) and time K4 and the sharded step.
+against its plain send/recv version, check that lone calls time out and
+raise (one whose caller synchronises the stream first), run the dryrun at
+MODE_8K_UK (mux-DP over 4 x 2 muxes; the time-sharded loopback over 8
+one-frame blocks, equal to the single-process streaming chain; the K4 halo
+path equal to the send/recv one), time K4, the sharded step with either
+halo, and two one-card neighbour barriers (stream order, host).
 Every phase raises on failure (nonzero exit).  The last line is one JSON
 object {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit from nvidia-smi, and before that a JSON line with
@@ -122,20 +126,30 @@ def parallel_phase(card: str) -> dict:
           f"{time.time() - t0:.1f} s: K4 byte-exact against its plain "
           f"version on {res['payloads']} over 4 calls each; dryrun stages "
           f"{ {k: round(v['seconds'], 2) for k, v in res['dryrun'].items()} }"
-          f", launches {res['launches']}; a lone call raised: "
+          f", launches {res['launches']}; lone calls raised: "
           f"{res['timeout_error']}", flush=True)
+    require(len(res["timeout_error"]) == 2,
+            f"not both lone K4 calls raised: {res['timeout_error']}")
     require(res["launches"]["ring_shift"] > 0,
             f"the time-sharded path did not launch K4: {res['launches']}")
     require(res["launches"]["viterbi_depunct"] > 0,
             f"the halo recompute did not launch K3: {res['launches']}")
     for key, t in res["times"].items():
+        require(t["waits"] == "in stream order",
+                f"K4 with 4 ranks on one card waited {t['waits']}")
         print(f"[time] ring_shift {key} halo {t['bytes']} B, 4 ranks on one "
               f"card (includes the neighbour barrier across time-sliced "
-              f"contexts): kernel {t['k4']:.4f} ms, plain send/recv "
+              f"contexts, waited {t['waits']}): K4 {t['k4']:.4f} ms, "
+              f"plain send/recv "
               f"{t['plain']:.4f} ms, runs {t['runs']} ({card})",
               flush=True)
     print(f"[time] time-sharded step, 4 ranks x 1 frame, host clock: "
           f"{res['step_ms']} ms ({card})", flush=True)
+    k16 = res["probes"]["k4_16_bytes"]
+    print(f"[probe] one-card neighbour barrier, ms per call: stream-order "
+          f"(K4 at 16 B) {k16['k4']:.4f} (runs {k16['runs']['k4']}), on the "
+          f"host through shared memory {res['probes']['host_barrier']:.4f} "
+          f"({card})", flush=True)
     iq = res["times"]["iq"]
     t_bound, by = bound(2 * iq["bytes"], 0)
     return {"name": "ring_shift", "route": "cuda",
@@ -159,8 +173,8 @@ def main() -> None:
     import numpy as np
 
     sys.path.insert(0, str(ROOT))
-    from dvbt_tpu_torch import MODE_8K_UK, make_ts_packets
-    from dvbt_tpu_torch.mode import SYMBOLS_PER_FRAME
+    from dvbt_tpu_torch import MODE_8K_UK, coder_bench, make_ts_packets
+    from dvbt_tpu_torch.mode import SYMBOLS_PER_FRAME, DvbtMode
     from dvbt_tpu_torch.kernels import _build
     from dvbt_tpu_torch.kernels import coder as kcoder
     from dvbt_tpu_torch.kernels import viterbi as kvit
@@ -192,34 +206,51 @@ def main() -> None:
             print(f"[build] {line.strip()}")
 
     # --- 2. K2 against its plain version and a numpy reference -----------
-    for r in RATES:
-        n_bytes = 3 * 5 * 7 * 8 * 19
-        st_k = torch.as_tensor(rng.integers(0, 2, (3, 6), dtype=np.uint8),
+    # every case exact, over 2 blocks with the carried state6; each case's
+    # largest |difference| goes into the kernels line
+    def k2_blocks(n_mux, n_bytes, r, n_blocks=2) -> int:
+        st_k = torch.as_tensor(rng.integers(0, 2, (n_mux, 6), dtype=np.uint8),
                                device=dev)
         st_p = st_k.clone()
-        for blk in range(2):
+        err = 0
+        for blk in range(n_blocks):
             stream = torch.as_tensor(
-                rng.integers(0, 256, (3, n_bytes), dtype=np.uint8),
+                rng.integers(0, 256, (n_mux, n_bytes), dtype=np.uint8),
                 device=dev)
             st_k, got = kcoder.byte_coder(st_k, stream, r)
             st_p, want = kcoder.byte_coder_plain(st_p, stream, r)
+            err = max(err, int((got.int() - want.int()).abs().max()))
             require(torch.equal(got, want) and torch.equal(st_k, st_p),
-                    f"K2 rate {r} block {blk} differs from its plain version")
+                    f"K2 rate {r}, {n_mux} x {n_bytes} bytes, block {blk} "
+                    "differs from its plain version")
+        return err
+
+    k2_cases = {}
+    for r in RATES:     # each rate at its own 8K 64-QAM 4-frame byte count
+        nb = DvbtMode("8k", "64qam", r, "1/32").packets_per_block * 4 * 204
+        k2_cases[f"rate {r}, 3 x {nb} bytes"] = k2_blocks(3, nb, r)
+    k2_cases[f"flagship rate, 1 and 8 x {flag_bytes} bytes"] = max(
+        k2_blocks(m, flag_bytes, rate) for m in (1, 8))
+    k2_cases["5 rates, 3 x 15960 bytes (rows not a multiple of 16 B)"] = max(
+        k2_blocks(3, 3 * 5 * 7 * 8 * 19, r) for r in RATES)
+    k2_cases["rate 2/3, 3 x 1001 bytes (a ragged unit, rows of output "
+             "not 16-byte aligned)"] = k2_blocks(3, 1001, "2/3")
+    frame_bytes = mode.packets_per_block * 204
+    k2_cases[f"time-sharded step, 1 x {frame_bytes} bytes"] = k2_blocks(
+        1, frame_bytes, rate)
     stream = torch.as_tensor(rng.integers(0, 256, (8, flag_bytes),
                                           dtype=np.uint8), device=dev)
     state0 = torch.zeros(8, 6, dtype=torch.uint8, device=dev)
     _, k2_out = kcoder.byte_coder(state0, stream, rate)
-    _, k2_plain = kcoder.byte_coder_plain(state0, stream, rate)
-    k2_err = int((k2_out.int() - k2_plain.int()).abs().max())
-    require(k2_err == 0, "K2 differs from its plain version at 8 x "
-                         f"{flag_bytes} bytes")
     ref = numpy_mother_code(np.unpackbits(stream[0].cpu().numpy()), rate,
                             puncture.pattern(rate).order,
                             puncture.pattern(rate).period)
-    require(np.array_equal(k2_out[0].cpu().numpy(), ref),
-            "K2 differs from the numpy mother-code reference")
-    print(f"[K2] exact at all 5 rates over 2 blocks, and at 8 x {flag_bytes}"
-          " bytes (plain + numpy reference)", flush=True)
+    k2_cases["numpy mother-code reference, mux 0 of 8"] = int(np.abs(
+        k2_out[0].cpu().numpy().astype(int) - ref.astype(int)).max())
+    k2_err = max(k2_cases.values())
+    require(k2_err == 0, f"K2 differs from its plain version or the numpy "
+                         f"reference: {k2_cases}")
+    print(f"[K2] exact in every case {k2_cases}", flush=True)
 
     # --- 3. K1 and K3 against their plain versions -----------------------
     # every case exact; each case's largest |difference| goes into the
@@ -515,12 +546,6 @@ def main() -> None:
           f"{step_s * 1e3:.3f} ms/step, {msps:.3f} Msamples/s ({card})",
           flush=True)
 
-    def k2():
-        kcoder.byte_coder(state0, stream, rate)
-
-    def k2_plain():
-        kcoder.byte_coder_plain(state0, stream, rate)
-
     for _ in range(2):
         blk_rx(blk_state, capture)
     torch.cuda.synchronize()
@@ -532,9 +557,18 @@ def main() -> None:
     print(f"[time] block path {n_mux} x {n_cap} samples: {blk_ms:.3f} ms per "
           f"capture ({card})", flush=True)
 
-    times = {}
-    for name, kern, plain, reps, preps in (("coder", k2, k2_plain, 20, 5),
-                                           ("viterbi", vin.k1, vin.k1_plain,
+    # K2: the device's time (events checked against the profiler)
+    k2_t = coder_bench.time_shape(8, flag_bytes, dev)
+    k2_frame = coder_bench.time_shape(1, frame_bytes, dev)
+    times = {"coder": (k2_t["ms"], k2_t["plain_ms"])}
+    for key, t in (("8 muxes, flagship shape", k2_t),
+                   ("1 mux x 1 frame, time-sharded shape", k2_frame)):
+        runs = [(round(r["events_ms"], 4), round(r["profiler_ms"], 4))
+                for r in t["runs"]]
+        print(f"[time] coder at {key}: kernel {t['ms']:.4f} ms (each run by "
+              f"events, profiler: {runs}), plain {t['plain_ms']:.3f} ms "
+              f"({card})", flush=True)
+    for name, kern, plain, reps, preps in (("viterbi", vin.k1, vin.k1_plain,
                                             5, 1),
                                            ("viterbi_depunct", vin.k3,
                                             vin.k3_plain, 3, 1)):
@@ -595,7 +629,7 @@ def main() -> None:
               k1_err, k1_cases),
         entry("byte_coder", "coder", "dvbt_tpu_torch/csrc/coder.cu",
               "dvbt_tpu/kernels/coder_pallas.py:44", launches["coder"],
-              k2_err),
+              k2_err, k2_cases),
         entry("viterbi_depunct", "viterbi_depunct",
               "dvbt_tpu_torch/csrc/viterbi.cu",
               "dvbt_tpu/kernels/viterbi_pallas.py:71",

@@ -24,14 +24,18 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dvbt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+_P, _I, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # C entry points: name -> argument types (pointers and the stream as void*,
-# lengths as int64 — ctypes would otherwise pass 32-bit ints)
+# lengths as int64 — ctypes would otherwise pass 32-bit ints).  Each
+# returns an int error code (0: success) unless _RESTYPES says otherwise.
+# tests/test_torch_build.py holds this table against the sources.
 _SIGNATURES = {
     "dvbt_byte_coder": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dvbt_viterbi_punct": [_P, _P, _P, *[_I] * 13, _P, _P],
     "dvbt_viterbi_depunct": [_P, _P, _P, _P, _P, _P, *[_I] * 9, _P, _P],
     # K4, the halo ring (csrc/ring.cu); void** outputs are passed by byref
+    "dvbt_ring_stream_ops": [_I, _P],
+    "dvbt_ring_device_uuid": [_I, _P],
     "dvbt_ring_alloc": [_I, _I, _P],
     "dvbt_ring_free": [_P],
     "dvbt_ring_get_handle": [_P, _P],
@@ -40,7 +44,12 @@ _SIGNATURES = {
     "dvbt_ring_error_word": [_P, _P],
     "dvbt_ring_free_host": [_P],
     "dvbt_ring_shift": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
+    "dvbt_ring_send": [_P, _I, _P, _P, _P, _I, _P, _P],
+    "dvbt_ring_receive": [_P, _I, _P, _I, _P, _P],
+    "dvbt_ring_release": [_P, _I, _P],
+    "dvbt_error_string": [_INT],
 }
+_RESTYPES = {"dvbt_error_string": ctypes.c_char_p}
 
 
 def sources() -> list[Path]:
@@ -107,9 +116,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.dvbt_error_string.argtypes = [ctypes.c_int]
-    lib.dvbt_error_string.restype = ctypes.c_char_p
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

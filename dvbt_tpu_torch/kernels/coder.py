@@ -1,13 +1,16 @@
 """K2 — byte stream -> punctured K=7 coded bits (TX inner coder, T4).
 
 Replaces ``dvbt_tpu/kernels/coder_pallas.py::_coder_kernel`` (built by
-``make_byte_coder``).  The CUDA kernel is ``csrc/coder.cu``: one thread per
-output coded bit reads the 7 stream bits b[n-6..n] it depends on (the
-carried 6-bit state for n < 6) and writes the parity of the tapped ones in
-Table-3 serial puncture order.  On the H100 the pass is bound by its byte
-stores (one byte per coded bit, ~9.9 MB per 8K mux at rate 2/3); the input
-bytes each serve ~12 threads out of the L1, so reads cost little.  The
-plain version below is the same contract in PyTorch.
+``make_byte_coder``).  The CUDA kernel is ``csrc/coder.cu``; like the Pallas
+kernel it runs the mother code on packed bytes and expands bits only at
+the end: one thread per ``period`` input bytes (8 puncture periods) holds
+them, with the byte before (the carried 6-bit state at a row's start), in
+one register word, forms every x and y bit of its unit with shifted-word
+XORs, picks the coded bytes in Table-3 serial order (one template
+instantiation a rate) and stages them in shared memory, from which each
+block writes its run of the row with 16-byte stores.  On the H100 it is
+bound by those byte stores (one byte per coded bit, ~9.9 MB per 8K mux at
+rate 2/3).  The plain version below is the same contract in PyTorch.
 
 Dispatch is by tensor device only: CPU tensors take the plain version, CUDA
 tensors the kernel (or an error).  ``launches`` counts kernel launches.
@@ -76,6 +79,9 @@ def byte_coder(state6: torch.Tensor, stream: torch.Tensor,
                          f"of rate-{rate} puncture periods")
     n_mux = stream.numel() // n_bytes
     n_coded = n_bytes * 8 // period * keep
+    if n_coded >= 2**31:
+        raise ValueError(f"byte_coder: {n_coded} coded bits a row; the kernel "
+                         "indexes a row with 32 bits")
     out = torch.empty(stream.shape[:-1] + (n_coded,), dtype=torch.uint8,
                       device=stream.device)
     order_packed = sum(o << (4 * r) for r, o in enumerate(order))

@@ -6,21 +6,31 @@ barrier, then a remote DMA into the right neighbour's output) built by
 D)])`` over the ranks of a process group, for any dtype and shape, byte for
 byte.
 
-The CUDA kernel is ``csrc/ring.cu``.  Every rank is a process with its own
-CUDA context; each ring object allocates, once, a region of flag words and
-a receive buffer with ``cudaMalloc`` in the C library (not a torch tensor:
-the caching allocator sub-allocates, and an IPC handle names a whole
-allocation), the ranks swap the 64-byte IPC handles with an ``all_gather``,
-and each rank maps its neighbours' regions.  One launch per shift, on the
-current stream: signal both neighbours with the call's sequence number,
-wait for both, store the payload into the right neighbour's buffer,
-publish, wait for the left neighbour's payload, copy it out into a fresh
-tensor.  Every wait is bounded in seconds by the card's global timer; a
-timed-out wait makes the kernel return and the wrapper raise.  The bytes
-move once each way (HBM on one card, the link across cards); the time is
-the barrier's, which on one card waits for the neighbours' contexts to get
-their time slices.  ``_to_dma_friendly`` (complex split, word packing for
-Mosaic) has no counterpart: the kernel copies raw bytes.
+The CUDA kernels are ``csrc/ring.cu``.  Every rank is a process with its
+own CUDA context; each ring object allocates, once, a region of flag words
+and a receive buffer with ``cudaMalloc`` in the C library (not a torch
+tensor: the caching allocator sub-allocates, and an IPC handle names a
+whole allocation), the ranks swap the 64-byte IPC handles with an
+``all_gather``, and each rank maps its neighbours' regions.  A shift, on
+the current stream: signal both neighbours with the call's sequence
+number, wait for both, a kernel stores the payload into the right
+neighbour's buffer, publish, wait for the left neighbour's payload, a
+kernel copies it out into a fresh tensor.  Set-up swaps each rank's card
+(its UUID) with the handles and picks how the calls wait
+(``cards_apart``).  Where ring neighbours share a card, the signals and
+waits are the driver's stream memory operations (the library binds the
+driver API at set-up and raises if the card lacks 64-bit ones), so the
+waits hold no SM: the ranks' time-sliced contexts get the card as soon as
+they have work, where a kernel that spun on the flags kept its slice.  A
+stream wait has no deadline, so a watchdog thread per ring bounds every
+call in seconds: past ``timeout_s`` from the call's start on the card it
+writes the error word (the ring's kernels then return at once) and
+releases the waits from another stream.  With a card per rank, one kernel
+signals, waits on the flags (bounded by the card's timer) and moves the
+payload, faster there.  Either way ``check()`` and the next call raise
+after a timeout.  The bytes move once each way (HBM on one card, the link across
+cards).  ``_to_dma_friendly`` (complex split, word packing for Mosaic)
+has no counterpart: the kernels copy raw bytes.
 
 Each call site needs a ring object of its own (its own buffers, flags and
 sequence numbers), as each JAX call site takes its own ``collective_id``;
@@ -29,12 +39,15 @@ all ranks call a ring in the same order, on the same stream.
 The plain version, ``ring_shift_plain``, is ``torch.distributed``
 send-to-the-right / receive-from-the-left (staged through the host for
 gloo).  Dispatch is by tensor device only: a CPU tensor takes the plain
-version, a CUDA tensor K4 (or an error).  ``launches`` counts K4 launches.
+version, a CUDA tensor K4 (or an error).  ``launches`` counts K4 calls.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import threading
+import time
 
 import torch
 import torch.distributed as dist
@@ -45,7 +58,11 @@ from . import multihost
 launches = 0
 DEFAULT_TIMEOUT_S = 60.0
 _HANDLE_BYTES = 64
+_UUID_BYTES = 16
 _ERRORS = {1: "the neighbour barrier", 2: "the left neighbour's payload"}
+_RELEASE = 1 << 62   # past every sequence number: releases every wait
+_POLL_S = 5e-3       # the watchdog's polling period
+_CUDA_ERROR_NOT_SUPPORTED = 801
 
 
 def _as_bytes(x: torch.Tensor) -> torch.Tensor:
@@ -72,6 +89,71 @@ def ring_shift_plain(x: torch.Tensor, group=None) -> torch.Tensor:
     return recv.to(x.device).view(x.dtype).reshape(x.shape)
 
 
+def cards_apart(cards: list) -> bool:
+    """True when no two ring neighbours share a card (each entry names a
+    rank's card, in rank order).  K4 then waits on the SMs: one kernel that
+    spins on the flags, measured ~7x faster than stream-order waits with a
+    card per rank.  Where neighbours share a card it waits in stream order:
+    a spinning kernel there holds its context's time slice (~9 ms a call
+    with 4 ranks on one card, against ~0.8 in stream order)."""
+    D = len(cards)
+    return D > 1 and all(cards[q] != cards[(q + 1) % D] for q in range(D))
+
+
+class Watchdog:
+    """Bounds the calls of one ring in seconds, on a thread of its own.
+
+    ``watch(seq, begin, sent, end)`` takes three events recorded on the
+    ring's stream: before the call, after its send half (barrier, store,
+    publish) and after its copy-out.  The thread takes the calls in order:
+    once ``begin`` has completed (the call has reached the card) it gives
+    ``end`` ``timeout_s``, and past that calls ``expire(seq, code)``, code 1
+    if ``sent`` had not completed (the neighbour barrier) else 2 (the left
+    neighbour's payload), and again after every further ``timeout_s``
+    until ``end`` completes.  Anything with a ``query()`` that returns True
+    once done serves as an event."""
+
+    def __init__(self, timeout_s: float, expire):
+        self.timeout_s = timeout_s
+        self._expire = expire
+        self._calls = collections.deque()
+        self._cv = threading.Condition()
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def watch(self, seq: int, begin, sent, end) -> None:
+        with self._cv:
+            self._calls.append((seq, begin, sent, end))
+            self._cv.notify()
+
+    def close(self) -> None:
+        """Stop once every watched call has completed."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify()
+        self._thread.join()
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while not self._calls and not self._closed:
+                    self._cv.wait()
+                if not self._calls:
+                    return
+                seq, begin, sent, end = self._calls[0]
+            while not begin.query():
+                time.sleep(_POLL_S)
+            deadline = time.monotonic() + self.timeout_s
+            while not end.query():
+                if time.monotonic() > deadline:
+                    self._expire(seq, 2 if sent.query() else 1)
+                    deadline += self.timeout_s
+                time.sleep(_POLL_S)
+            with self._cv:
+                self._calls.popleft()
+
+
 class RingShift:
     """One call site of the halo ring over ``group`` (None: the world).
 
@@ -79,19 +161,21 @@ class RingShift:
     by every rank of the group in the same order.  The first call on a CUDA
     tensor sets up the IPC buffers, sized for its payload; a later payload
     must fit them.  ``check()`` waits for the stream and raises if a
-    launch timed out (the ring is then of no further use); ``close()``
+    call timed out (the ring is then of no further use); ``close()``
     (collective) frees the buffers."""
 
     def __init__(self, group=None, timeout_s: float = DEFAULT_TIMEOUT_S):
         self.group = group
-        self.timeout_ns = int(timeout_s * 1e9)
+        self.timeout_s = timeout_s
         self.capacity = 0
         self.seq = 0
         self.device = None
+        self.on_sms = None         # set up: which way the calls wait
         self._base = None          # this rank's region
         self._opened = {}          # group rank -> mapped region
         self._left = self._right = None
         self._err_host = self._err_dev = None
+        self._watchdog = self._release_stream = None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu":
@@ -118,12 +202,30 @@ class RingShift:
                                               ctypes.byref(dev)),
                      "dvbt_ring_error_word")
         self._err_host, self._err_dev = host.value, dev.value
-        handle = (ctypes.c_ubyte * _HANDLE_BYTES)()
-        _build.check(lib.dvbt_ring_get_handle(self._base, handle),
+        # each rank's IPC handle and card, swapped in one all_gather
+        record = (ctypes.c_ubyte * (_HANDLE_BYTES + _UUID_BYTES))()
+        _build.check(lib.dvbt_ring_get_handle(self._base, record),
                      "dvbt_ring_get_handle")
-        handles = multihost.all_gather(
-            torch.tensor(bytearray(handle), dtype=torch.uint8),
+        _build.check(lib.dvbt_ring_device_uuid(
+            device.index, ctypes.byref(record, _HANDLE_BYTES)),
+            "dvbt_ring_device_uuid")
+        records = multihost.all_gather(
+            torch.tensor(bytearray(record), dtype=torch.uint8),
             self.group).numpy()
+        self.on_sms = cards_apart([q[_HANDLE_BYTES:].tobytes()
+                                   for q in records])
+        if not self.on_sms:
+            attrs = (ctypes.c_int64 * 2)()
+            code = lib.dvbt_ring_stream_ops(device.index, attrs)
+            if code == _CUDA_ERROR_NOT_SUPPORTED:
+                raise RuntimeError(
+                    f"ring shift: {device} has no 64-bit stream memory "
+                    f"operations (CAN_USE_STREAM_MEM_OPS_V1, CAN_USE_64_BIT_"
+                    f"STREAM_MEM_OPS = {tuple(attrs)}); K4 waits with them "
+                    "where ranks share a card and has no other barrier there")
+            _build.check(code, "dvbt_ring_stream_ops")
+            self._release_stream = torch.cuda.Stream(device)  # non-blocking
+            self._watchdog = Watchdog(self.timeout_s, self._expire)
 
         def region(q: int) -> int:
             if q == r:
@@ -131,7 +233,7 @@ class RingShift:
             if q not in self._opened:
                 ptr = ctypes.c_void_p()
                 buf = (ctypes.c_ubyte * _HANDLE_BYTES).from_buffer_copy(
-                    handles[q].tobytes())
+                    records[q, :_HANDLE_BYTES].tobytes())
                 _build.check(lib.dvbt_ring_open_handle(
                     device.index, buf, ctypes.byref(ptr)),
                     "dvbt_ring_open_handle")
@@ -141,13 +243,22 @@ class RingShift:
         self._left = region((r + D - 1) % D)
         self._right = region((r + 1) % D)
 
-    def _error(self) -> tuple[int, int]:
-        word = (ctypes.c_int * 2).from_address(self._err_host)
-        return word[0], word[1]
+    def _error(self):
+        return (ctypes.c_int * 2).from_address(self._err_host)
+
+    def _expire(self, seq: int, code: int) -> None:
+        """The watchdog's action on a call past its deadline: report the
+        first such call in the error word, then release its waits."""
+        word = self._error()
+        if not word[0]:
+            word[1] = seq
+            word[0] = code
+        _build.check(_build.library().dvbt_ring_release(
+            self._base, _RELEASE, self._release_stream.cuda_stream),
+            "dvbt_ring_release")
 
     def check(self) -> None:
-        """Wait for the stream; raise if a K4 launch of this ring timed
-        out."""
+        """Wait for the stream; raise if a call of this ring timed out."""
         if self._err_host is None:
             return
         torch.cuda.current_stream(self.device).synchronize()
@@ -158,7 +269,7 @@ class RingShift:
         if code:
             raise RuntimeError(
                 f"ring shift call {seq}: timed out after "
-                f"{self.timeout_ns / 1e9:g} s waiting for "
+                f"{self.timeout_s:g} s waiting for "
                 f"{_ERRORS.get(code, f'code {code}')}")
 
     def _launch(self, x: torch.Tensor) -> torch.Tensor:
@@ -175,11 +286,26 @@ class RingShift:
         self._raise_on_error()
         out = torch.empty(n, dtype=torch.uint8, device=x.device)
         self.seq += 1
-        code = _build.library().dvbt_ring_shift(
-            src.data_ptr(), out.data_ptr(), n, self._base, self._left,
-            self._right, self.seq, self.timeout_ns, self._err_dev,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(code, "dvbt_ring_shift")
+        lib = _build.library()
+        stream = torch.cuda.current_stream(x.device)
+        if self.on_sms:
+            _build.check(lib.dvbt_ring_shift(
+                src.data_ptr(), out.data_ptr(), n, self._base, self._left,
+                self._right, self.seq, int(self.timeout_s * 1e9),
+                self._err_dev, stream.cuda_stream), "dvbt_ring_shift")
+        else:
+            begin, sent, end = (torch.cuda.Event() for _ in range(3))
+            begin.record(stream)
+            _build.check(lib.dvbt_ring_send(
+                src.data_ptr(), n, self._base, self._left, self._right,
+                self.seq, self._err_dev, stream.cuda_stream),
+                "dvbt_ring_send")
+            sent.record(stream)
+            _build.check(lib.dvbt_ring_receive(
+                out.data_ptr(), n, self._base, self.seq, self._err_dev,
+                stream.cuda_stream), "dvbt_ring_receive")
+            end.record(stream)
+            self._watchdog.watch(self.seq, begin, sent, end)
         global launches
         launches += 1
         return out.view(x.dtype).reshape(x.shape)
@@ -190,6 +316,8 @@ class RingShift:
             return
         lib = _build.library()
         torch.cuda.current_stream(self.device).synchronize()
+        if self._watchdog is not None:
+            self._watchdog.close()
         dist.barrier(group=self.group)     # no neighbour still writes here
         for ptr in self._opened.values():
             _build.check(lib.dvbt_ring_close_handle(ptr),
@@ -199,6 +327,7 @@ class RingShift:
         _build.check(lib.dvbt_ring_free_host(self._err_host),
                      "dvbt_ring_free_host")
         self._base = self._err_host = self._err_dev = None
+        self._watchdog = self._release_stream = None
         self._opened = {}
 
 

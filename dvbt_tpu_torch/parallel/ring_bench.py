@@ -6,12 +6,14 @@ time it, in every rank of a process group.
 starts N rank processes (default: one per card when the host has two or
 more, else 4 on the one card), checks K4 byte for byte against the plain
 send/recv version on the JAX test's payloads and the flagship's two halos
-and that a lone call times out and raises, runs the parallel dryrun at
+and that lone calls time out and raise, runs the parallel dryrun at
 MODE_8K_UK, times K4, the plain version and, where every rank has a card
 of its own, NCCL send/recv (``dist.batch_isend_irecv`` over an NCCL group,
-the library call for the same function), and times the time-sharded step
-on the host clock.  Prints one JSON line.  ``chip_smoke.py`` runs
-``rank_main`` in its phase 7, with 4 ranks on its one card.  On one card the ranks' contexts are
+the library call for the same function), times two neighbour barriers
+alone (K4 at 16 bytes, and a barrier on the host through shared memory),
+and times the time-sharded step with either halo on the host clock.
+Prints one JSON line.  ``chip_smoke.py`` runs ``rank_main`` in its phase
+7, with 4 ranks on its one card.  On one card the ranks' contexts are
 time-sliced, so K4's time there includes its neighbour barrier across
 them.
 """
@@ -85,26 +87,84 @@ def check_ring(payloads: dict, device) -> float:
     return err
 
 
-def check_timeout(device) -> str:
-    """A call that only rank 0 makes must time out in K4's barrier (after
-    2 s) and raise, not hang: returns the error it raised."""
+def check_timeout(device, timeout_s: float = 2.0) -> list[str]:
+    """Two calls that only rank 0 makes must each time out (after
+    ``timeout_s``) and raise, not hang, within ``timeout_s`` + 1 s: one
+    caller calls ``check()`` at once, the other first synchronises the
+    stream itself.  Returns the errors they raised."""
     rank = dist.get_rank()
     x = torch.zeros(16, dtype=torch.uint8, device=device)
-    shift = ring.make_ring_shift(timeout_s=2.0)
-    shift(x)                       # every rank: set-up and one real call
-    shift.check()
-    dist.barrier()
-    msg = ""
+    msgs = []
+    for sync_first in (False, True):
+        shift = ring.make_ring_shift(timeout_s=timeout_s)
+        shift(x)                   # every rank: set-up and one real call
+        shift.check()
+        dist.barrier()
+        if rank == 0:
+            t0 = time.perf_counter()
+            shift(x)               # alone: no neighbour enters this call
+            msg = ""
+            try:
+                if sync_first:
+                    torch.cuda.current_stream(device).synchronize()
+                shift.check()
+            except RuntimeError as e:
+                msg = str(e)
+            took = time.perf_counter() - t0
+            if "timed out" not in msg:
+                raise AssertionError("a lone K4 call did not time out")
+            if took > timeout_s + 1:
+                raise AssertionError(f"a lone K4 call raised after {took:.2f}"
+                                     f" s, past {timeout_s} s + 1 s")
+            msgs.append(f"{msg} (raised after {took:.3f} s"
+                        f"{', stream synchronised first' if sync_first else ''})")
+        shift.close()
+    return msgs
+
+
+def host_barrier_ms(device, reps: int = 50) -> float:
+    """Probe of the other route for K4's one-card barrier: ms per call of a
+    neighbour barrier on the host (synchronise the stream, write the call's
+    number into the neighbours' words of a shared-memory page, spin until
+    both of this rank's words have reached it), host clock over reps calls,
+    every rank starting together."""
+    from multiprocessing import shared_memory
+
+    rank, D = dist.get_rank(), dist.get_world_size()
+    name = [f"dvbt_ring_probe_{os.getpid()}"]
     if rank == 0:
-        shift(x)                   # alone: no neighbour enters this call
-        try:
-            shift.check()
-        except RuntimeError as e:
-            msg = str(e)
-        if "timed out" not in msg:
-            raise AssertionError("a lone K4 call did not time out")
-    shift.close()
-    return msg
+        shm = shared_memory.SharedMemory(name=name[0], create=True,
+                                         size=16 * D)
+    dist.broadcast_object_list(name, 0)
+    if rank != 0:
+        shm = shared_memory.SharedMemory(name=name[0])
+    words = np.ndarray((D, 2), np.uint64, buffer=shm.buf)  # (left, right)
+    if rank == 0:
+        words[:] = 0
+    dist.barrier()
+    stream = torch.cuda.current_stream(device)
+
+    def barrier(k: int) -> None:
+        stream.synchronize()
+        words[(rank - 1) % D, 1] = k
+        words[(rank + 1) % D, 0] = k
+        deadline = time.monotonic() + 10
+        while words[rank, 0] < k or words[rank, 1] < k:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"host barrier call {k} timed out")
+
+    barrier(1)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for k in range(2, reps + 2):
+        barrier(k)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    dist.barrier()
+    del words
+    shm.close()
+    if rank == 0:
+        shm.unlink()
+    return ms
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -126,7 +186,7 @@ def _event_ms(fn, reps: int) -> float:
 def time_ring(payloads: dict, device, nccl=None) -> dict:
     """Per payload: K4, the plain version and (with an NCCL group) NCCL
     send/recv, ms per call by CUDA events in the order plain, K4, K4,
-    plain, then the library call twice."""
+    plain, then the library call twice; and how K4's calls waited."""
     rank, D = dist.get_rank(), dist.get_world_size()
     out = {}
     for name, x in payloads.items():
@@ -150,37 +210,51 @@ def time_ring(payloads: dict, device, nccl=None) -> dict:
                 "k4": [_event_ms(k4, 50), _event_ms(k4, 50)]}
         runs["plain"].append(_event_ms(plain, 10))
         shift.check()
+        waits = "on the SMs" if shift.on_sms else "in stream order"
         shift.close()
         if nccl is not None:
             runs["library"] = [_event_ms(library, 50), _event_ms(library, 50)]
-        out[name] = {"bytes": int(x.nbytes), "runs": runs,
+        out[name] = {"bytes": int(x.nbytes), "waits": waits, "runs": runs,
                      **{k: sum(v) / len(v) for k, v in runs.items()}}
     return out
 
 
-def time_steps(mode, device) -> dict:
-    """Host-clock ms per time-sharded step over 3 steps, with each halo
-    path (after one warm-up step; every step ends in collectives)."""
-    n_steps = 3
+def time_steps(mode, device, n_rounds: int = 8) -> dict:
+    """Host-clock ms per time-sharded step with each halo path: both
+    loopbacks are built first and warmed up by one step, then n_rounds
+    rounds each time one step of each, in the order send/recv, K4, K4,
+    send/recv, ... (every rank starting each step together; every step
+    ends in collectives and a synchronise).  Returns each path's median
+    and its steps."""
     rank, D = dist.get_rank(), dist.get_world_size()
-    packets = make_ts_packets(mode.packets_per_block * D * (n_steps + 1),
-                              seed=21)
-    out = {}
-    for halo in ("ppermute", "ring"):
-        step, n_pk, carry, close = tsh.make_time_sharded_loopback(
-            mode, device, halo=halo)
-        for s in range(n_steps + 1):
-            if s == 1:
-                torch.cuda.synchronize()
-                dist.barrier()
-                t0 = time.perf_counter()
-            b = s * D + rank
-            carry = step(carry, torch.as_tensor(
-                packets[b * n_pk:(b + 1) * n_pk], device=device))[0]
+    n_steps = n_rounds + 1
+    packets = make_ts_packets(mode.packets_per_block * D * n_steps, seed=21)
+    loops = {halo: tsh.make_time_sharded_loopback(mode, device, halo=halo)
+             for halo in ("ppermute", "ring")}
+    carries = {halo: loop[2] for halo, loop in loops.items()}
+    times = {halo: [] for halo in loops}
+
+    def run(halo: str, s: int) -> float:
+        step, n_pk = loops[halo][:2]
+        b = s * D + rank
+        x = torch.as_tensor(packets[b * n_pk:(b + 1) * n_pk], device=device)
         torch.cuda.synchronize()
-        out[halo] = (time.perf_counter() - t0) / n_steps * 1e3
-        close()
-    return out
+        dist.barrier()
+        t0 = time.perf_counter()
+        carries[halo] = step(carries[halo], x)[0]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for halo in loops:
+        run(halo, 0)
+    for s in range(1, n_steps):
+        order = ("ppermute", "ring") if s % 2 else ("ring", "ppermute")
+        for halo in order:
+            times[halo].append(run(halo, s))
+    for loop in loops.values():
+        loop[3]()                  # close
+    return {**{k: float(np.median(v)) for k, v in times.items()},
+            "steps": times}
 
 
 def jax_test_payloads() -> dict:
@@ -197,10 +271,11 @@ def jax_test_payloads() -> dict:
 
 def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
     """One rank: K4 against its plain version on the JAX test's payloads
-    and the flagship's halos, a lone call that must time out, the dryrun
-    at MODE_8K_UK with every launch counter set to 0 just before it and
-    summed over the ranks just after, then the K4 and step timings.  Rank
-    0 writes the results as JSON to ``out_path``."""
+    and the flagship's halos, lone calls that must time out, the two
+    barrier probes, the dryrun at MODE_8K_UK with every launch counter set
+    to 0 just before it and summed over the ranks just after, then the K4
+    and step timings.  Rank 0 writes the results as JSON to
+    ``out_path``."""
     from ..kernels import coder as kcoder
     from ..kernels import viterbi as kvit
     from . import sharding
@@ -215,6 +290,9 @@ def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
                    for k, v in halos.items()}}
     err = check_ring(payloads, device)
     timeout_error = check_timeout(device)
+    probes = {"host_barrier": host_barrier_ms(device),
+              "k4_16_bytes": time_ring(
+                  {"16 B": np.zeros(16, np.uint8)}, device)["16 B"]}
     torch.cuda.synchronize()
     ring.launches = kvit.depunct_launches = 0
     kvit.launches = kcoder.launches = 0
@@ -225,6 +303,7 @@ def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
          kcoder.launches]))
     res = {"ranks": n_ranks, "card_per_rank": own_cards, "k4_err": err,
            "payloads": list(payloads), "timeout_error": timeout_error,
+           "probes": probes,
            "launches": dict(zip(("ring_shift", "viterbi_depunct",
                                  "viterbi_punct", "byte_coder"),
                                 map(int, counts))),
