@@ -21,12 +21,14 @@ through the registry's blocks from the synchronizer to the descrambler
 impairments, its TS byte-exact from the detected frame on, and its TPS
 bits.  Then timings, and the parallel package: 4 rank processes on the one
 card (spawned, gloo between them) check K4, the halo ring over CUDA IPC,
-against its plain send/recv version, check that lone calls time out and
-raise (one whose caller synchronises the stream first), run the dryrun at
+against its plain send/recv version and that lone calls time out and
+raise (one whose caller synchronises the stream first), on each of K4's
+two routes (waits in stream order, the one-card choice; one kernel that
+waits on the SMs, the choice with a card per rank), run the dryrun at
 MODE_8K_UK (mux-DP over 4 x 2 muxes; the time-sharded loopback over 8
 one-frame blocks, equal to the single-process streaming chain; the K4 halo
-path equal to the send/recv one), time K4, the sharded step with either
-halo, and two one-card neighbour barriers (stream order, host).
+path equal to the send/recv one), and time K4 and the sharded step with
+either halo.
 Every phase raises on failure (nonzero exit).  The last line is one JSON
 object {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit from nvidia-smi, and before that a JSON line with
@@ -107,9 +109,9 @@ def numpy_mother_code(bits, rate: str, order, period: int):
 
 def parallel_phase(card: str) -> dict:
     """Phase 7: 4 ranks on the one card (ring_bench.rank_main: K4 against
-    its plain version, a lone call that must time out, the dryrun at the
-    flagship mode, K4 and step timings); returns K4's entry of the
-    kernels line."""
+    its plain version and lone calls that must time out, on both routes,
+    the dryrun at the flagship mode, K4 and step timings); returns K4's
+    entry of the kernels line."""
     import os
 
     from dvbt_tpu_torch.kernels import _build
@@ -122,14 +124,20 @@ def parallel_phase(card: str) -> dict:
     multihost.launch(ring_bench.rank_main, n_ranks, args=(str(out_path),),
                      timeout_s=300, deadline_s=900)
     res = json.loads(out_path.read_text())
+    routes = {r["waits"]: r for r in res["routes"]}
     print(f"[parallel] {n_ranks} ranks on one card in "
           f"{time.time() - t0:.1f} s: K4 byte-exact against its plain "
-          f"version on {res['payloads']} over 4 calls each; dryrun stages "
+          f"version on {res['payloads']} over 4 calls each, waiting "
+          f"{sorted(routes)}; dryrun stages "
           f"{ {k: round(v['seconds'], 2) for k, v in res['dryrun'].items()} }"
           f", launches {res['launches']}; lone calls raised: "
-          f"{res['timeout_error']}", flush=True)
-    require(len(res["timeout_error"]) == 2,
-            f"not both lone K4 calls raised: {res['timeout_error']}")
+          f"{[r['timeout_error'] for r in res['routes']]}", flush=True)
+    require(sorted(routes) == ["in stream order", "on the SMs"],
+            f"K4 was not checked on both routes: {sorted(routes)}")
+    for waits, r in routes.items():
+        require(r["k4_err"] == 0, f"K4 waiting {waits} differs: {r}")
+        require(len(r["timeout_error"]) == 2,
+                f"not both lone K4 calls waiting {waits} raised: {r}")
     require(res["launches"]["ring_shift"] > 0,
             f"the time-sharded path did not launch K4: {res['launches']}")
     require(res["launches"]["viterbi_depunct"] > 0,
@@ -145,11 +153,6 @@ def parallel_phase(card: str) -> dict:
               flush=True)
     print(f"[time] time-sharded step, 4 ranks x 1 frame, host clock: "
           f"{res['step_ms']} ms ({card})", flush=True)
-    k16 = res["probes"]["k4_16_bytes"]
-    print(f"[probe] one-card neighbour barrier, ms per call: stream-order "
-          f"(K4 at 16 B) {k16['k4']:.4f} (runs {k16['runs']['k4']}), on the "
-          f"host through shared memory {res['probes']['host_barrier']:.4f} "
-          f"({card})", flush=True)
     iq = res["times"]["iq"]
     t_bound, by = bound(2 * iq["bytes"], 0)
     return {"name": "ring_shift", "route": "cuda",
@@ -557,17 +560,17 @@ def main() -> None:
     print(f"[time] block path {n_mux} x {n_cap} samples: {blk_ms:.3f} ms per "
           f"capture ({card})", flush=True)
 
-    # K2: the device's time (events checked against the profiler)
+    # K2: the device's time by the profiler (events time the host here)
     k2_t = coder_bench.time_shape(8, flag_bytes, dev)
     k2_frame = coder_bench.time_shape(1, frame_bytes, dev)
     times = {"coder": (k2_t["ms"], k2_t["plain_ms"])}
     for key, t in (("8 muxes, flagship shape", k2_t),
                    ("1 mux x 1 frame, time-sharded shape", k2_frame)):
-        runs = [(round(r["events_ms"], 4), round(r["profiler_ms"], 4))
+        runs = [(round(r["ms"], 6), round(r["events_ms"], 4))
                 for r in t["runs"]]
-        print(f"[time] coder at {key}: kernel {t['ms']:.4f} ms (each run by "
-              f"events, profiler: {runs}), plain {t['plain_ms']:.3f} ms "
-              f"({card})", flush=True)
+        print(f"[time] coder at {key}: kernel {t['ms']:.6f} ms (each run by "
+              f"the profiler, and by events the host's issue: {runs}), "
+              f"plain {t['plain_ms']:.3f} ms ({card})", flush=True)
     for name, kern, plain, reps, preps in (("viterbi", vin.k1, vin.k1_plain,
                                             5, 1),
                                            ("viterbi_depunct", vin.k3,

@@ -111,11 +111,16 @@ class Watchdog:
     if ``sent`` had not completed (the neighbour barrier) else 2 (the left
     neighbour's payload), and again after every further ``timeout_s``
     until ``end`` completes.  Anything with a ``query()`` that returns True
-    once done serves as an event."""
+    once done serves as an event.  The thread makes ``device`` (the ring's
+    card, None for none) its current device.  If anything on it raises,
+    ``expire`` included, the thread stops and keeps the exception in
+    ``error`` for the ring to raise."""
 
-    def __init__(self, timeout_s: float, expire):
+    def __init__(self, timeout_s: float, expire, device=None):
         self.timeout_s = timeout_s
+        self.error = None
         self._expire = expire
+        self._device = device
         self._calls = collections.deque()
         self._cv = threading.Condition()
         self._closed = False
@@ -135,6 +140,14 @@ class Watchdog:
         self._thread.join()
 
     def _run(self) -> None:
+        try:
+            if self._device is not None:
+                torch.cuda.set_device(self._device)
+            self._serve()
+        except BaseException as e:  # kept for the ring to raise
+            self.error = e
+
+    def _serve(self) -> None:
         while True:
             with self._cv:
                 while not self._calls and not self._closed:
@@ -225,7 +238,8 @@ class RingShift:
                     "where ranks share a card and has no other barrier there")
             _build.check(code, "dvbt_ring_stream_ops")
             self._release_stream = torch.cuda.Stream(device)  # non-blocking
-            self._watchdog = Watchdog(self.timeout_s, self._expire)
+            self._watchdog = Watchdog(self.timeout_s, self._expire,
+                                      device)
 
         def region(q: int) -> int:
             if q == r:
@@ -248,7 +262,8 @@ class RingShift:
 
     def _expire(self, seq: int, code: int) -> None:
         """The watchdog's action on a call past its deadline: report the
-        first such call in the error word, then release its waits."""
+        first such call in the error word (which cannot raise), then
+        release its waits."""
         word = self._error()
         if not word[0]:
             word[1] = seq
@@ -258,13 +273,23 @@ class RingShift:
             "dvbt_ring_release")
 
     def check(self) -> None:
-        """Wait for the stream; raise if a call of this ring timed out."""
+        """Wait for the stream; raise if a call of this ring timed out, or
+        at once if the watchdog failed (the stream may then never drain)."""
         if self._err_host is None:
             return
+        self._raise_if_unwatched()
         torch.cuda.current_stream(self.device).synchronize()
         self._raise_on_error()
 
+    def _raise_if_unwatched(self) -> None:
+        """Raise if the watchdog failed: a wait may then never end."""
+        if self._watchdog is not None and self._watchdog.error is not None:
+            raise RuntimeError("ring shift: the watchdog failed, so a wait "
+                               "of this ring may never end"
+                               ) from self._watchdog.error
+
     def _raise_on_error(self) -> None:
+        self._raise_if_unwatched()
         code, seq = self._error()
         if code:
             raise RuntimeError(
@@ -314,6 +339,7 @@ class RingShift:
         """Free the buffers (collective: every rank closes its ring)."""
         if self._base is None:
             return
+        self._raise_if_unwatched()         # else the stream may never drain
         lib = _build.library()
         torch.cuda.current_stream(self.device).synchronize()
         if self._watchdog is not None:

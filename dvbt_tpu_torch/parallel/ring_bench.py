@@ -6,12 +6,12 @@ time it, in every rank of a process group.
 starts N rank processes (default: one per card when the host has two or
 more, else 4 on the one card), checks K4 byte for byte against the plain
 send/recv version on the JAX test's payloads and the flagship's two halos
-and that lone calls time out and raise, runs the parallel dryrun at
-MODE_8K_UK, times K4, the plain version and, where every rank has a card
-of its own, NCCL send/recv (``dist.batch_isend_irecv`` over an NCCL group,
-the library call for the same function), times two neighbour barriers
-alone (K4 at 16 bytes, and a barrier on the host through shared memory),
-and times the time-sharded step with either halo on the host clock.
+and that lone calls time out and raise, on each of its two routes (waits
+in stream order, waits on the SMs) whatever the layout would choose, runs
+the parallel dryrun at MODE_8K_UK, times K4, the plain version and, where
+every rank has a card of its own, NCCL send/recv (``dist.batch_isend_irecv``
+over an NCCL group, the library call for the same function), and times the
+time-sharded step with either halo on the host clock.
 Prints one JSON line.  ``chip_smoke.py`` runs ``rank_main`` in its phase
 7, with 4 ranks on its one card.  On one card the ranks' contexts are
 time-sliced, so K4's time there includes its neighbour barrier across
@@ -21,6 +21,7 @@ them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -60,11 +61,29 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
-def check_ring(payloads: dict, device) -> float:
+@contextlib.contextmanager
+def waiting(on_sms: bool):
+    """Rings set up inside wait on the SMs (one kernel) or in
+    stream order, whichever layout the ranks' cards have: a check of the
+    route the layout would not choose."""
+    chooses = ring.cards_apart
+    ring.cards_apart = lambda cards: on_sms
+    try:
+        yield
+    finally:
+        ring.cards_apart = chooses
+
+
+def _waits(shift: ring.RingShift) -> str:
+    return "on the SMs" if shift.on_sms else "in stream order"
+
+
+def check_ring(payloads: dict, device) -> tuple[float, str]:
     """K4 against its plain version on every payload, 4 calls of one ring
     object each (each rank sends payload + rank + 10 * call);
     raises on any byte that differs from the plain version or from the
-    left neighbour's payload.  Returns the largest |difference| (0)."""
+    left neighbour's payload.  Returns the largest |difference| (0) and
+    how the calls waited."""
     rank, D = dist.get_rank(), dist.get_world_size()
     err = 0.0
     for name, x in payloads.items():
@@ -81,18 +100,21 @@ def check_ring(payloads: dict, device) -> float:
             if not (got.dtype == want.dtype and got.shape == want.shape
                     and torch.equal(_bytes(got), _bytes(want))
                     and torch.equal(_bytes(got), _bytes(left))):
-                raise AssertionError(f"rank {rank}: K4 differs from its "
-                                     f"plain version on {name}, call {call}")
+                raise AssertionError(f"rank {rank}: K4 ({_waits(shift)}) "
+                                     f"differs from its plain version on "
+                                     f"{name}, call {call}")
+        waits = _waits(shift)
         shift.close()
-    return err
+    return err, waits
 
 
 def check_timeout(device, timeout_s: float = 2.0) -> list[str]:
-    """Two calls that only rank 0 makes must each time out (after
-    ``timeout_s``) and raise, not hang, within ``timeout_s`` + 1 s: one
-    caller calls ``check()`` at once, the other first synchronises the
-    stream itself.  Returns the errors they raised."""
-    rank = dist.get_rank()
+    """Two calls that only the last rank makes (with a card per rank, not
+    on card 0) must each time out (after ``timeout_s``) and raise, not
+    hang, within ``timeout_s`` + 1 s: one caller calls ``check()`` at once,
+    the other first synchronises the stream itself.  Returns, on every
+    rank, the errors they raised."""
+    rank, D = dist.get_rank(), dist.get_world_size()
     x = torch.zeros(16, dtype=torch.uint8, device=device)
     msgs = []
     for sync_first in (False, True):
@@ -100,7 +122,7 @@ def check_timeout(device, timeout_s: float = 2.0) -> list[str]:
         shift(x)                   # every rank: set-up and one real call
         shift.check()
         dist.barrier()
-        if rank == 0:
+        if rank == D - 1:
             t0 = time.perf_counter()
             shift(x)               # alone: no neighbour enters this call
             msg = ""
@@ -116,55 +138,13 @@ def check_timeout(device, timeout_s: float = 2.0) -> list[str]:
             if took > timeout_s + 1:
                 raise AssertionError(f"a lone K4 call raised after {took:.2f}"
                                      f" s, past {timeout_s} s + 1 s")
-            msgs.append(f"{msg} (raised after {took:.3f} s"
+            msgs.append(f"{msg} (raised after {took:.3f} s, waited "
+                        f"{_waits(shift)} on {device}"
                         f"{', stream synchronised first' if sync_first else ''})")
         shift.close()
-    return msgs
-
-
-def host_barrier_ms(device, reps: int = 50) -> float:
-    """Probe of the other route for K4's one-card barrier: ms per call of a
-    neighbour barrier on the host (synchronise the stream, write the call's
-    number into the neighbours' words of a shared-memory page, spin until
-    both of this rank's words have reached it), host clock over reps calls,
-    every rank starting together."""
-    from multiprocessing import shared_memory
-
-    rank, D = dist.get_rank(), dist.get_world_size()
-    name = [f"dvbt_ring_probe_{os.getpid()}"]
-    if rank == 0:
-        shm = shared_memory.SharedMemory(name=name[0], create=True,
-                                         size=16 * D)
-    dist.broadcast_object_list(name, 0)
-    if rank != 0:
-        shm = shared_memory.SharedMemory(name=name[0])
-    words = np.ndarray((D, 2), np.uint64, buffer=shm.buf)  # (left, right)
-    if rank == 0:
-        words[:] = 0
-    dist.barrier()
-    stream = torch.cuda.current_stream(device)
-
-    def barrier(k: int) -> None:
-        stream.synchronize()
-        words[(rank - 1) % D, 1] = k
-        words[(rank + 1) % D, 0] = k
-        deadline = time.monotonic() + 10
-        while words[rank, 0] < k or words[rank, 1] < k:
-            if time.monotonic() > deadline:
-                raise RuntimeError(f"host barrier call {k} timed out")
-
-    barrier(1)
-    dist.barrier()
-    t0 = time.perf_counter()
-    for k in range(2, reps + 2):
-        barrier(k)
-    ms = (time.perf_counter() - t0) / reps * 1e3
-    dist.barrier()
-    del words
-    shm.close()
-    if rank == 0:
-        shm.unlink()
-    return ms
+    msgs = [msgs]
+    dist.broadcast_object_list(msgs, D - 1)
+    return msgs[0]
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -210,7 +190,7 @@ def time_ring(payloads: dict, device, nccl=None) -> dict:
                 "k4": [_event_ms(k4, 50), _event_ms(k4, 50)]}
         runs["plain"].append(_event_ms(plain, 10))
         shift.check()
-        waits = "on the SMs" if shift.on_sms else "in stream order"
+        waits = _waits(shift)
         shift.close()
         if nccl is not None:
             runs["library"] = [_event_ms(library, 50), _event_ms(library, 50)]
@@ -271,8 +251,8 @@ def jax_test_payloads() -> dict:
 
 def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
     """One rank: K4 against its plain version on the JAX test's payloads
-    and the flagship's halos, lone calls that must time out, the two
-    barrier probes, the dryrun at MODE_8K_UK with every launch counter set
+    and the flagship's halos and lone calls that must time out, on either
+    route, the dryrun at MODE_8K_UK with every launch counter set
     to 0 just before it and summed over the ranks just after, then the K4
     and step timings.  Rank 0 writes the results as JSON to
     ``out_path``."""
@@ -288,11 +268,12 @@ def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
     payloads = {**jax_test_payloads(),
                 **{f"{k} halo {v.dtype} {v.shape}": v
                    for k, v in halos.items()}}
-    err = check_ring(payloads, device)
-    timeout_error = check_timeout(device)
-    probes = {"host_barrier": host_barrier_ms(device),
-              "k4_16_bytes": time_ring(
-                  {"16 B": np.zeros(16, np.uint8)}, device)["16 B"]}
+    routes = []
+    for on_sms in (False, True):
+        with waiting(on_sms):
+            err, waits = check_ring(payloads, device)
+            routes.append({"waits": waits, "k4_err": err,
+                           "timeout_error": check_timeout(device)})
     torch.cuda.synchronize()
     ring.launches = kvit.depunct_launches = 0
     kvit.launches = kcoder.launches = 0
@@ -301,9 +282,9 @@ def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
     counts = multihost.all_reduce_sum(torch.tensor(
         [ring.launches, kvit.depunct_launches, kvit.launches,
          kcoder.launches]))
-    res = {"ranks": n_ranks, "card_per_rank": own_cards, "k4_err": err,
-           "payloads": list(payloads), "timeout_error": timeout_error,
-           "probes": probes,
+    res = {"ranks": n_ranks, "card_per_rank": own_cards,
+           "k4_err": max(r["k4_err"] for r in routes),
+           "payloads": list(payloads), "routes": routes,
            "launches": dict(zip(("ring_shift", "viterbi_depunct",
                                  "viterbi_punct", "byte_coder"),
                                 map(int, counts))),

@@ -112,6 +112,29 @@ def test_ring_watchdog_starts_the_clock_when_the_call_begins():
     assert not fired
 
 
+def test_ring_watchdog_keeps_a_failed_release_and_the_ring_raises_it():
+    """An expire that raises stops the thread and is kept; the ring's
+    check() and close() then raise it at once instead of waiting on a
+    stream that may never drain."""
+    def expire(seq, code):
+        raise OSError("release refused")
+
+    dog = ring.Watchdog(0.05, expire)
+    dog.watch(1, _Event(True), _Event(), _Event())
+    dog._thread.join(5)
+    assert not dog._thread.is_alive()
+    assert isinstance(dog.error, OSError)
+    dog.close()                            # returns: the thread has ended
+    shift = ring.RingShift()
+    word = (ctypes.c_int * 2)()
+    shift._base, shift._watchdog = 1, dog
+    shift._err_host = ctypes.addressof(word)
+    for call in (shift.check, shift.close):
+        with pytest.raises(RuntimeError, match="watchdog failed") as info:
+            call()
+        assert isinstance(info.value.__cause__, OSError)
+
+
 @pytest.mark.parametrize("cards, apart", [
     ("a", False),            # one rank
     ("aaaa", False),         # 4 ranks on one card
