@@ -28,7 +28,9 @@ waits on the SMs, the choice with a card per rank), run the dryrun at
 MODE_8K_UK (mux-DP over 4 x 2 muxes; the time-sharded loopback over 8
 one-frame blocks, equal to the single-process streaming chain; the K4 halo
 path equal to the send/recv one), and time K4 and the sharded step with
-either halo.
+either halo.  Last, the flagship bench (dvbt_tpu_torch.bench): its step
+captured into one CUDA graph against the eager step over 4 carried steps,
+byte for byte, and a 2 s bench run whose line must pass its gates.
 Every phase raises on failure (nonzero exit).  The last line is one JSON
 object {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit from nvidia-smi, and before that a JSON line with
@@ -48,6 +50,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DELAY_PACKETS = 11   # outer interleaver + deinterleaver: 2244 bytes
 RATES = ("1/2", "2/3", "3/4", "5/6", "7/8")
+BENCH_STEPS = 4      # carried steps of the graph step against the eager one
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
 # derived as 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (boost clock); the
 # data sheet gives no int32 rate
@@ -92,19 +95,6 @@ def viterbi_ops(n_mux: int, n_bits: int, body: int, ov: int,
     64 states x per_state_step."""
     n_win = -(-n_bits // body)
     return float(n_mux * n_win * (body + 2 * ov) * 64 * per_state_step)
-
-
-def numpy_mother_code(bits, rate: str, order, period: int):
-    """Independent reference: x/y by convolution with G1=171o, G2=133o
-    taps over b[n..n-6] from a zero state, then Table-3 puncturing."""
-    import numpy as np
-    n = len(bits)
-    g1 = np.array([1, 1, 1, 1, 0, 0, 1], np.uint8)
-    g2 = np.array([1, 0, 1, 1, 0, 1, 1], np.uint8)
-    x = np.convolve(bits, g1)[:n] % 2
-    y = np.convolve(bits, g2)[:n] % 2
-    pairs = np.stack([x, y], axis=1).reshape(n // period, 2 * period)
-    return pairs[:, np.asarray(order)].reshape(-1).astype(np.uint8)
 
 
 def parallel_phase(card: str) -> dict:
@@ -164,6 +154,88 @@ def parallel_phase(card: str) -> dict:
             "bound_by": by, "library_ms": None}
 
 
+def bench_phase(card: str, dev) -> dict:
+    """Phase 8: the flagship bench (dvbt_tpu_torch.bench).  The step
+    captured into a CUDA graph and the eager step run BENCH_STEPS carried
+    steps from the same initial state and packets: TS, rs_uncorrectable
+    and every carried-state leaf byte-identical, the TS the packets sent.
+    Then bench.run for 2 s with its hard checks; prints its line.  Returns
+    each kernel's launches in one replay of the graph."""
+    import numpy as np
+    import torch
+
+    from dvbt_tpu_torch import MODE_8K_UK, bench, make_ts_packets
+    from dvbt_tpu_torch.kernels import coder as kcoder
+    from dvbt_tpu_torch.kernels import viterbi as kvit
+    from dvbt_tpu_torch.models import rx as rxm
+    from dvbt_tpu_torch.models import tx as txm
+
+    mode, n_mux, n_frames = MODE_8K_UK, 8, 4
+    torch.cuda.synchronize()
+    kcoder.launches = 0
+    kvit.launches = 0
+    t0 = time.time()
+    graphed = bench.make_step(mode, dev, n_mux, n_frames, graph=True)
+    t_capture = time.time() - t0
+    eager = bench.make_step(mode, dev, n_mux, n_frames, graph=False)
+    n_pk = graphed.n_packets
+    sent = make_ts_packets(n_pk * n_mux * BENCH_STEPS, seed=13).reshape(
+        BENCH_STEPS, n_mux, n_pk, 188)
+    packets = torch.as_tensor(sent, device=dev)
+
+    def carried(step):
+        """[[(name, tensor)] of each step's outputs and carried state]."""
+        tst = txm.init_tx_state(mode, n_mux, dev)
+        rst = rxm.init_rx_state(mode, n_mux, dev)
+        out = []
+        for s in range(BENCH_STEPS):
+            tst, rst, ts, bad = step(tst, rst, packets[s])
+            out.append([(n, t.clone()) for n, t in (
+                [("ts", ts), ("rs_uncorrectable", bad)]
+                + bench.state_leaves(tst, rst))])
+        return out
+
+    got, want = carried(graphed), carried(eager)
+    torch.cuda.synchronize()
+    launches = {"byte_coder": kcoder.launches, "viterbi_punct": kvit.launches}
+    require(graphed.captured == {"byte_coder": 1, "viterbi_punct": 1},
+            f"the captured step did not launch K1 and K2 once each: "
+            f"{graphed.captured}")
+    require(all(n > 0 for n in launches.values()),
+            f"the bench's step did not launch both kernels: {launches}")
+    for s, (g_out, e_out) in enumerate(zip(got, want)):
+        for (name, g), (_, e) in zip(g_out, e_out):
+            require(g.dtype == e.dtype and g.shape == e.shape and torch.equal(
+                g.reshape(-1).view(torch.uint8),
+                e.reshape(-1).view(torch.uint8)),
+                f"step {s}: {name} of the graph step differs from the eager "
+                "step's")
+    ts = torch.cat([o[0][1] for o in got], dim=1).cpu().numpy()
+    flat = sent.transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
+    require(np.array_equal(ts[:, DELAY_PACKETS:], flat[:, :-DELAY_PACKETS]),
+            "the graph step's TS differs from the packets sent")
+    bad = torch.cat([o[1][1] for o in got], dim=1)[:, DELAY_PACKETS:]
+    require(not bool(bad.any()), "the graph step has uncorrectable packets "
+                                 "after warm-up")
+    n_leaves = len(got[0]) - 2
+    print(f"[bench] CUDA graph step captured in {t_capture:.2f} s (build, "
+          f"2 eager warm-up steps, capture), launches in the capture "
+          f"{graphed.captured}; {BENCH_STEPS} carried steps byte-identical "
+          f"to the eager step (TS, rs_uncorrectable, {n_leaves} state "
+          f"leaves), TS the packets sent; launches {launches}", flush=True)
+    per_replay = dict(graphed.captured)
+    del graphed, eager, got, want
+
+    line = bench.run(mode, dev, n_mux=n_mux, n_frames=n_frames, seconds=2.0,
+                     warmup=3, graph=True, parity=True)
+    print(f"[bench] {json.dumps(line)} ({card})", flush=True)
+    require(line["coder_hw_parity"] and line["viterbi_hw_parity"]
+            and line["rs_uncorrectable_last_block"] == 0
+            and line["cuda_graph"] and line["block_samples"] == 18382848,
+            f"the bench's line fails its gates: {line}")
+    return per_replay
+
+
 def main() -> None:
     import torch
 
@@ -176,7 +248,7 @@ def main() -> None:
     import numpy as np
 
     sys.path.insert(0, str(ROOT))
-    from dvbt_tpu_torch import MODE_8K_UK, coder_bench, make_ts_packets
+    from dvbt_tpu_torch import MODE_8K_UK, bench, coder_bench, make_ts_packets
     from dvbt_tpu_torch.mode import SYMBOLS_PER_FRAME, DvbtMode
     from dvbt_tpu_torch.kernels import _build
     from dvbt_tpu_torch.kernels import coder as kcoder
@@ -245,9 +317,8 @@ def main() -> None:
                                           dtype=np.uint8), device=dev)
     state0 = torch.zeros(8, 6, dtype=torch.uint8, device=dev)
     _, k2_out = kcoder.byte_coder(state0, stream, rate)
-    ref = numpy_mother_code(np.unpackbits(stream[0].cpu().numpy()), rate,
-                            puncture.pattern(rate).order,
-                            puncture.pattern(rate).period)
+    ref = bench.numpy_mother_code(np.unpackbits(stream[0].cpu().numpy()),
+                                  rate)
     k2_cases["numpy mother-code reference, mux 0 of 8"] = int(np.abs(
         k2_out[0].cpu().numpy().astype(int) - ref.astype(int)).max())
     k2_err = max(k2_cases.values())
@@ -587,6 +658,9 @@ def main() -> None:
     # --- 7. parallel: 4 ranks on the card, K4 and the time-sharded path ---
     k4_entry = parallel_phase(card)
 
+    # --- 8. the flagship bench: the CUDA graph step ------------------------
+    per_replay = bench_phase(card, dev)
+
     imported = sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "dvbt_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")
@@ -624,6 +698,8 @@ def main() -> None:
              "bound_by": bounds[key][1], "library_ms": None}
         if cases is not None:
             e["cases"] = cases      # max_abs_err of each parity case
+        if name in per_replay:      # launches in one replay of the graph
+            e["launches_per_graph_replay"] = per_replay[name]
         return e
 
     kernels = [

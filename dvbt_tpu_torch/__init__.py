@@ -20,6 +20,8 @@ Layout:
               the block-level receive chain from a raw capture
   utils/    — bit packing, the puncture pattern, carried-state exchange
               with the JAX package
+  bench.py  — the flagship bench (``python3 -m dvbt_tpu_torch.bench``):
+              the TX -> RX step as one CUDA graph, bench.py's JSON line
   profile_slice.py — per-stage device time of the flagship step
 
 Factories take an explicit ``device``, build their tables there once and

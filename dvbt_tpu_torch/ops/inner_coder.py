@@ -41,6 +41,10 @@ def make_depuncture(n_info_bits: int, rate: str):
                          f"rate-{rate} puncture periods")
     n_blk = n_info_bits // period
     known = [int(r >= 0) for r in rank]
+    # the x and y masks, (n_info_bits,) each, built once per device: a
+    # host-to-device copy every call would block the host and cannot be
+    # captured into a CUDA graph
+    masks = {}
 
     def depuncture(coded: torch.Tensor):
         lead = coded.shape[:-1]
@@ -51,10 +55,13 @@ def make_depuncture(n_info_bits: int, rate: str):
                 for r in range(2 * period)]
         x = torch.stack(cols[0::2], dim=-1).reshape(*lead, n_info_bits)
         y = torch.stack(cols[1::2], dim=-1).reshape(*lead, n_info_bits)
-        kn = torch.tensor(known, dtype=torch.uint8, device=coded.device)
-        kx = kn[0::2].repeat(n_blk).expand(*lead, n_info_bits)
-        ky = kn[1::2].repeat(n_blk).expand(*lead, n_info_bits)
-        return x, y, kx, ky
+        if coded.device not in masks:
+            kn = torch.tensor(known, dtype=torch.uint8, device=coded.device)
+            masks[coded.device] = (kn[0::2].repeat(n_blk),
+                                   kn[1::2].repeat(n_blk))
+        kx, ky = masks[coded.device]
+        return (x, y, kx.expand(*lead, n_info_bits),
+                ky.expand(*lead, n_info_bits))
 
     return depuncture
 

@@ -60,8 +60,11 @@ def make_viterbi_decoder(n_bits: int, rate: str, body: int = DEFAULT_BODY,
                            dim=-2)
         out = kvit.viterbi_punct(coded, tail, n_bits, rate, body)
         x, y, xm, ym = depunct_tail(coded[..., coded.shape[-1] - ov_c:])
-        new_state = {"x": x, "y": y, "xm": xm.contiguous(),
-                     "ym": ym.contiguous()}
+        # the masks are views of the depuncturer's cached pattern: copy
+        # them, so that the carried state never aliases it
+        new_state = {"x": x, "y": y,
+                     "xm": xm.clone(memory_format=torch.contiguous_format),
+                     "ym": ym.clone(memory_format=torch.contiguous_format)}
         return new_state, out
 
     return decode
