@@ -10,16 +10,29 @@ than one window body, a ragged last window, a body whose decisions spill
 to device memory, 1 to 8 muxes, the flagship and time-sharded shapes; and
 K2, the inner coder, at every rate's 8K byte count, 1 to 8 muxes, rows
 that are not a multiple of 16 bytes, the time-sharded shape, two blocks
-with the carried state, and a numpy reference of the mother code), checks
-the 8K transmitter against the golden snapshot, then drives the flagship
-slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32; 8 muxes x 4 frames per
-step) TX -> RX and checks that every mux returns
-its transport stream byte-exact.  Then it drives the block-level receive
+with the carried state, and a numpy reference of the mother code; both
+at the hierarchical shapes: 8K alpha=2 HP 2/3 and LP 3/4 at 1 and 4
+frames, 2K alpha=2 HP 1/2 and LP 3/4; K1 also on the soft receiver's own
+CSI-weighted metrics under Annex B P1 at 20 dB; K3 at each stream's
+time-sharded halo shape), checks the 8K transmitter against the golden snapshot, then drives the
+flagship slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32; 8 muxes x 4
+frames per step) TX -> RX and checks that every mux returns its
+transport stream byte-exact.  Then it drives the block-level receive
 path: 8 raw captures, each with its own delay, CFO and AWGN at 30 dB,
 through the registry's blocks from the synchronizer to the descrambler
 (K3 decodes), and checks each mux's sync estimates against the
 impairments, its TS byte-exact from the detected frame on, and its TPS
-bits.  Then timings, and the parallel package: 4 rank processes on the one
+bits.  Then the BER path (apps.ber_sweep.run_point on the card: three
+MODE_8K_UK points, soft under P1 at 20 dB, hard at 19 dB and soft at 16
+dB, each within 15% of the JAX package's curve in docs/ for each of 8
+seeds, and the other demap at each point outside it; ms per BER block on
+the host clock and its device busy time from one profiler trace), the
+hierarchical configuration (8K 64-QAM alpha=2, HP 2/3 + LP 3/4, 8 muxes
+x 4 frames, noiseless, both streams byte-exact, K1 and K2 twice a step)
+and the 2K alpha=2 soft point at 6 dB within 25% of its curve for each
+of 4 seeds, hard metrics there outside it.  Then
+timings (with the flagship step's device time per stage, hard and soft
+demap), and the parallel package: 4 rank processes on the one
 card (spawned, gloo between them) check K4, the halo ring over CUDA IPC,
 against its plain send/recv version and that lone calls time out and
 raise (one whose caller synchronises the stream first), on each of K4's
@@ -27,14 +40,17 @@ two routes (waits in stream order, the one-card choice; one kernel that
 waits on the SMs, the choice with a card per rank), run the dryrun at
 MODE_8K_UK (mux-DP over 4 x 2 muxes; the time-sharded loopback over 8
 one-frame blocks, equal to the single-process streaming chain; the K4 halo
-path equal to the send/recv one), and time K4 and the sharded step with
+path equal to the send/recv one; the same three stages with the soft
+receiver and with the hierarchical configuration, three halos a step,
+each on both of K4's routes), and time K4 and the sharded step with
 either halo.  Last, the flagship bench (dvbt_tpu_torch.bench): its step
 captured into one CUDA graph against the eager step over 4 carried steps,
 byte for byte, and a 2 s bench run whose line must pass its gates.
 Every phase raises on failure (nonzero exit).  The last line is one JSON
 object {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit from nvidia-smi, and before that a JSON line with
-each kernel's launches on the main path, error and times.
+each kernel's launches on the main path (and on every other path, each
+counted alone), error and times.
 
 Needs a CUDA device: without one it exits nonzero and prints no result.
 """
@@ -48,7 +64,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-DELAY_PACKETS = 11   # outer interleaver + deinterleaver: 2244 bytes
 RATES = ("1/2", "2/3", "3/4", "5/6", "7/8")
 BENCH_STEPS = 4      # carried steps of the graph step against the eager one
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and int32 operations/s
@@ -64,6 +79,27 @@ INT32_OPS_S = 64 * 132 * 1.98e9
 # packs or not.
 OPS_PER_STATE_STEP = 3
 PACKED16_OPS_S = 2 * INT32_OPS_S
+# the BER points at full width (MODE_8K_UK, 4 blocks each): (demap, Annex B
+# profile, SNR dB, the JAX package's curve in docs/).  The noise is the
+# port's own, so a point must lie within BER_TOL of the curve's
+# ber_post_viterbi for each of BER_SEEDS, and its packet error rate at most
+# PER_MAX where the curve reads 0.  Planted faults show what the tolerance
+# catches: the other demap at the same point must fall outside it, and the
+# point FAULT_DB lower is read
+BER_POINTS = (("soft", "P1", 20.0, "ber_8k_64qam_23_p1_soft"),
+              ("hard", None, 19.0, "ber_8k_64qam_23_hard"),
+              ("soft", None, 16.0, "ber_8k_64qam_23_soft"))
+BER_BLOCKS = 4
+BER_SEEDS = tuple(range(8))
+BER_TOL = 0.15
+PER_MAX = 0.005
+FAULT_DB = 0.25
+# the hierarchical 2K point: 2K 16-QAM alpha=2, HP 1/2, LP 3/4, soft, 6 dB,
+# against docs/ber_2k_16qam_hier_a2_soft.jsonl (8 blocks there) within
+# HIER_BER_TOL, over HIER_BER_BLOCKS blocks for each of HIER_BER_SEEDS
+HIER_BER_TOL = 0.25
+HIER_BER_BLOCKS = 32
+HIER_BER_SEEDS = tuple(range(4))
 
 
 def card_line() -> str:
@@ -97,15 +133,295 @@ def viterbi_ops(n_mux: int, n_bits: int, body: int, ov: int,
     return float(n_mux * n_win * (body + 2 * ov) * 64 * per_state_step)
 
 
-def parallel_phase(card: str) -> dict:
+def hier_2k():
+    """The hierarchical 2K BER point's mode: 2K 16-QAM alpha=2, HP 1/2, LP
+    3/4."""
+    from dvbt_tpu_torch.mode import DvbtMode
+
+    return DvbtMode("2k", "16qam", "1/2", alpha=2, code_rate_lp="3/4")
+
+
+def ratio_to(r: dict, ref: dict, key: str = "ber_post_viterbi") -> float:
+    """A BER point's ``key`` over the docs/ curve's."""
+    return (r[key] or 0.0) / ref[key]
+
+
+def doc_point(name: str, snr: float) -> dict:
+    """The line of docs/<name>.jsonl (the JAX package's BER curve) at
+    ``snr`` dB."""
+    for line in (ROOT / "docs" / f"{name}.jsonl").read_text().splitlines():
+        d = json.loads(line)
+        if d["snr_db"] == snr:
+            return d
+    raise KeyError(f"{name} has no point at {snr} dB")
+
+
+def counted(fn) -> tuple:
+    """(fn(), launches of K1 and K2 during it): the counters set to 0 just
+    before, read just after."""
+    import torch
+
+    from dvbt_tpu_torch.kernels import coder as kcoder
+    from dvbt_tpu_torch.kernels import viterbi as kvit
+
+    torch.cuda.synchronize()
+    kcoder.launches = 0
+    kvit.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"viterbi_punct": kvit.launches,
+                 "byte_coder": kcoder.launches}
+
+
+def k1_on_receiver_metrics(dev) -> tuple[int, float]:
+    """K1 against its plain version on the soft receiver's own inputs: two
+    MODE_8K_UK blocks (one frame each) through Annex B P1 and AWGN at 20
+    dB into the CSI-weighted soft receiver, whose K1 calls are recorded
+    (metrics, carried tail) and replayed through K1 and the plain version.
+    Returns the largest |difference| and the share of graded metrics (not
+    0 or 15)."""
+    import torch
+
+    from dvbt_tpu_torch import MODE_8K_UK, make_ts_packets
+    from dvbt_tpu_torch.kernels import viterbi as kvit
+    from dvbt_tpu_torch.models import channel
+    from dvbt_tpu_torch.models import rx as rxm
+    from dvbt_tpu_torch.models import tx as txm
+
+    mode = MODE_8K_UK
+    tx, n_pk, _ = txm.make_transmitter(mode, dev)
+    rx, _, _ = rxm.make_receiver(mode, dev, demap="soft", metrics="min")
+    taps = channel.annex_b_taps("P1")
+    gen = torch.Generator(device=dev).manual_seed(2027)
+    tst = txm.init_tx_state(mode, 1, dev)
+    rst = rxm.init_rx_state(mode, 1, dev)
+    seen = []
+    kernel = kvit.viterbi_punct
+
+    def record(coded, tail, n_bits, rate, body):
+        seen.append((coded.clone(), tail.clone(), n_bits, rate, body))
+        return kernel(coded, tail, n_bits, rate, body)
+
+    kvit.viterbi_punct = record
+    try:
+        for b in range(2):
+            tst, iq = tx(tst, torch.as_tensor(make_ts_packets(
+                n_pk, seed=40 + b), device=dev)[None])
+            rst, _, _ = rx(rst, channel.awgn(
+                gen, channel.multipath(iq, taps), 20.0))
+    finally:
+        kvit.viterbi_punct = kernel
+    require(len(seen) == 2, f"the soft receiver called K1 {len(seen)} "
+                            "times over 2 blocks")
+    err, graded = 0, []
+    for blk, (coded, tail, n_bits, rate, body) in enumerate(seen):
+        got = kernel(coded, tail, n_bits, rate, body)
+        want = kvit.viterbi_punct_plain(coded, tail, n_bits, rate, body)
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        require(torch.equal(got, want), f"K1 on the soft receiver's metrics, "
+                f"block {blk}, differs from its plain version")
+        graded.append(float(((coded > 0) & (coded < 15)).float().mean()))
+    return err, min(graded)
+
+
+def ber_phase(card: str, dev) -> dict:
+    """The BER path at full width through apps.ber_sweep.run_point on the
+    card: BER_POINTS at MODE_8K_UK over BER_SEEDS, each within BER_TOL of
+    its docs/ curve; the planted faults; then ms per 8K BER block, hard
+    and soft, on the host clock and from one profiler trace.  Returns K1's
+    and K2's launches over the points and seeds."""
+    from dvbt_tpu_torch import MODE_8K_UK, profile_slice
+    from dvbt_tpu_torch.apps import ber_sweep
+    from dvbt_tpu_torch.kernels import _build
+
+    mode = MODE_8K_UK
+
+    def points():
+        return [(point, seed, ber_sweep.run_point(
+            mode, point[2], BER_BLOCKS, seed, demap=point[0],
+            profile=point[1], device=dev))
+            for point in BER_POINTS for seed in BER_SEEDS]
+
+    t0 = time.perf_counter()
+    results, launches = counted(points)
+    secs = time.perf_counter() - t0
+    for point in BER_POINTS:
+        demap, profile, snr, doc = point
+        ref = doc_point(doc, snr)
+        runs = [(seed, r) for p, seed, r in results if p == point]
+        ratios = [ratio_to(r, ref) for _, r in runs]
+        print(f"[ber] 8K 64-QAM 2/3 {demap} {profile or 'AWGN'} {snr} dB, "
+              f"{BER_BLOCKS} blocks ({runs[0][1]['packets']} packets) a "
+              f"seed, seeds {BER_SEEDS}: ber_post_viterbi "
+              f"{[r['ber_post_viterbi'] for _, r in runs]}, docs/{doc} "
+              f"{ref['ber_post_viterbi']}; ratios "
+              f"{[round(x, 4) for x in ratios]}, largest |ratio - 1| "
+              f"{max(abs(x - 1) for x in ratios):.4f} (tolerance {BER_TOL})"
+              f"; per {[r['per'] for _, r in runs]} (docs {ref['per']}) "
+              f"({card})", flush=True)
+        for (seed, r), ratio in zip(runs, ratios):
+            require(r["device"] == "gpu", f"BER point ran on {r['device']}")
+            require(abs(ratio - 1) <= BER_TOL,
+                    f"{demap} {profile} {snr} dB seed {seed}: "
+                    f"ber_post_viterbi {r['ber_post_viterbi']} is not within "
+                    f"{BER_TOL:.0%} of docs/{doc} ({ref['ber_post_viterbi']})")
+            require(ref["per"] != 0 or r["per"] <= PER_MAX,
+                    f"{demap} {profile} {snr} dB seed {seed}: per {r['per']}"
+                    f" > {PER_MAX}")
+    n = len(BER_POINTS) * len(BER_SEEDS) * BER_BLOCKS
+    require(launches == {"viterbi_punct": n, "byte_coder": n},
+            f"the BER path did not launch K1 and K2 once a block: {launches}")
+    print(f"[ber] {len(results)} points in {secs:.2f} s with the build, "
+          f"launches {launches}", flush=True)
+    # planted faults, seed 0: the other demap (must fall outside BER_TOL),
+    # and the same chain FAULT_DB lower (read only)
+    for demap, profile, snr, doc in BER_POINTS:
+        ref = doc_point(doc, snr)
+        other = "hard" if demap == "soft" else "soft"
+        for what, f_demap, f_snr in ((f"{other} demap", other, snr),
+                                     (f"{FAULT_DB} dB lower", demap,
+                                      snr - FAULT_DB)):
+            r = ber_sweep.run_point(mode, f_snr, BER_BLOCKS, demap=f_demap,
+                                    profile=profile, device=dev)
+            ratio = ratio_to(r, ref)
+            print(f"[ber] planted fault at {demap} {profile or 'AWGN'} {snr} "
+                  f"dB, {what}: ber_post_viterbi {r['ber_post_viterbi']}, "
+                  f"ratio to docs/{doc} {ratio:.4f} (tolerance {BER_TOL}); "
+                  f"per {r['per']} ({card})", flush=True)
+            require(f_demap == demap or abs(ratio - 1) > BER_TOL,
+                    f"the {what} fault at {demap} {profile} {snr} dB falls "
+                    f"inside the tolerance: ratio {ratio}")
+    ms = {"hard": [], "soft": []}
+    for demap in ("hard", "soft", "soft", "hard"):     # chains built above
+        t0 = time.perf_counter()
+        ber_sweep.run_point(mode, 19.0, BER_BLOCKS, demap=demap, device=dev)
+        ms[demap].append((time.perf_counter() - t0) / BER_BLOCKS * 1e3)
+    for demap, runs in ms.items():
+        print(f"[time] BER block, 8K 64-QAM 2/3 {demap}, AWGN (TX, channel, "
+              f"RX, host copies; 1 mux x 1 frame; runs of {BER_BLOCKS} "
+              f"blocks, hard, soft, soft, hard): "
+              f"{', '.join(f'{t:.3f}' for t in runs)} ms ({card})",
+              flush=True)
+    # the device's share of a BER block: one trace of run_point calls
+    for demap in ("hard", "soft"):
+        prof = profile_slice._profile(
+            lambda: ber_sweep.run_point(mode, 19.0, BER_BLOCKS, demap=demap,
+                                        device=dev),
+            card, _build.BUILD_DIR / f"ber_{demap}_trace.json")
+        print(f"[time] BER block, 8K 64-QAM 2/3 {demap}, AWGN, profiled "
+              f"({profile_slice.PROFILED_STEPS} runs of {BER_BLOCKS} blocks, "
+              f"one trace): device busy {prof['busy'] / BER_BLOCKS:.4f} ms, "
+              f"wall {prof['wall'] / BER_BLOCKS:.4f} ms a block, idle share "
+              f"{prof['idle']:.4f} ({card})", flush=True)
+    return launches
+
+
+def hierarchical_phase(card: str, dev) -> dict:
+    """Hierarchical at full width: ring_bench.HIER_8K (8K 64-QAM alpha=2,
+    HP 2/3, LP 3/4), 8 muxes x 4 frames, 2 noiseless TX -> RX steps: both
+    streams byte-exact, K1 and K2 launched twice a step; the step's time;
+    then the 2K alpha=2 soft point at 6 dB against its docs/ curve.
+    Returns the launches of both."""
+    import numpy as np
+    import torch
+
+    from dvbt_tpu_torch import make_ts_packets
+    from dvbt_tpu_torch.apps import ber_sweep
+    from dvbt_tpu_torch.models import rx as rxm
+    from dvbt_tpu_torch.models import tx as txm
+    from dvbt_tpu_torch.ops.outer_interleaver import DELAY_PACKETS
+    from dvbt_tpu_torch.parallel.ring_bench import HIER_8K
+
+    mode, n_mux, n_frames, n_steps = HIER_8K, 8, 4, 2
+    tx, n_pk, _ = txm.make_transmitter(mode, dev, n_frames)
+    rx, _, _ = rxm.make_receiver(mode, dev, n_frames, metrics="min")
+    sent = [make_ts_packets(n * n_mux * n_steps, seed=31 + k).reshape(
+        n_steps, n_mux, n, 188) for k, n in enumerate(n_pk)]
+    packets = [torch.as_tensor(x, device=dev) for x in sent]
+    st = {"tx": txm.init_tx_state(mode, n_mux, dev),
+          "rx": rxm.init_rx_state(mode, n_mux, dev)}
+
+    def step(s):
+        st["tx"], iq = tx(st["tx"], tuple(p[s] for p in packets))
+        st["rx"], ts, m = rx(st["rx"], iq)
+        return ts, m
+
+    def run():
+        return [step(s) for s in range(n_steps)]
+
+    outs, launches = counted(run)
+    require(launches == {"viterbi_punct": 2 * n_steps,
+                         "byte_coder": 2 * n_steps},
+            f"the hierarchical step did not launch K1 and K2 twice: "
+            f"{launches}")
+    for k, key in enumerate(("rs_uncorrectable", "lp_rs_uncorrectable")):
+        got = np.concatenate([ts[k].cpu().numpy() for ts, _ in outs], axis=1)
+        want = sent[k].transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
+        require(np.array_equal(got[:, DELAY_PACKETS:],
+                               want[:, :-DELAY_PACKETS]),
+                f"hierarchical {('HP', 'LP')[k]} TS differs from the packets "
+                "sent")
+        bad = torch.cat([m[key] for _, m in outs], dim=1)[:, DELAY_PACKETS:]
+        require(not bool(bad.any()), f"hierarchical {key} after warm-up")
+    for _ in range(2):
+        step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"[hier] 8K 64-QAM alpha=2 HP 2/3 ({n_pk[0]} packets) + LP 3/4 "
+          f"({n_pk[1]}), {n_mux} muxes x {n_frames} frames x {n_steps} "
+          f"steps: both streams byte-exact after {DELAY_PACKETS} packets, "
+          f"rs_uncorrectable 0, launches {launches}", flush=True)
+    print(f"[time] hierarchical TX+RX step, {n_mux} muxes x {n_frames} "
+          f"frames: {step_ms:.3f} ms/step ({card})", flush=True)
+
+    mode2 = hier_2k()
+    ref = doc_point("ber_2k_16qam_hier_a2_soft", 6.0)
+    runs, launches2 = counted(lambda: [ber_sweep.run_point(
+        mode2, 6.0, HIER_BER_BLOCKS, seed, demap="soft", device=dev)
+        for seed in HIER_BER_SEEDS])
+    ratios = [ratio_to(r, ref) for r in runs]
+    print(f"[ber] 2K 16-QAM alpha=2 soft 6 dB, {HIER_BER_BLOCKS} blocks a "
+          f"seed, seeds {HIER_BER_SEEDS}: HP ber_post_viterbi "
+          f"{[r['ber_post_viterbi'] for r in runs]}, docs "
+          f"{ref['ber_post_viterbi']}; ratios {[round(x, 4) for x in ratios]}"
+          f", largest |ratio - 1| {max(abs(x - 1) for x in ratios):.4f} "
+          f"(tolerance {HIER_BER_TOL}); per {[r['per'] for r in runs]}, "
+          f"lp_per {[r['lp_per'] for r in runs]} (docs {ref['per']}, "
+          f"{ref['lp_per']}); launches {launches2} ({card})", flush=True)
+    for seed, r, ratio in zip(HIER_BER_SEEDS, runs, ratios):
+        require(abs(ratio - 1) <= HIER_BER_TOL and r["per"] <= PER_MAX,
+                f"2K alpha=2 soft 6 dB seed {seed}: {r} against docs {ref}")
+        require(r["lp_per"] >= 0.99, f"the LP stream decoded at 6 dB: {r}")
+    n = 2 * HIER_BER_BLOCKS * len(HIER_BER_SEEDS)
+    require(launches2 == {"viterbi_punct": n, "byte_coder": n},
+            f"the 2K hierarchical point's launches: {launches2}")
+    # planted fault, seed 0: hard metrics where soft are expected
+    r = ber_sweep.run_point(mode2, 6.0, HIER_BER_BLOCKS, demap="hard",
+                            device=dev)
+    ratio = ratio_to(r, ref)
+    print(f"[ber] planted fault at 2K alpha=2 soft 6 dB, hard demap: HP "
+          f"ber_post_viterbi {r['ber_post_viterbi']}, ratio {ratio:.4f} "
+          f"(tolerance {HIER_BER_TOL}); per {r['per']} ({card})", flush=True)
+    require(abs(ratio - 1) > HIER_BER_TOL,
+            f"the hard-demap fault at 2K alpha=2 6 dB falls inside the "
+            f"tolerance: ratio {ratio}")
+    return {"hierarchical_8k": launches, "hierarchical_2k_ber": launches2}
+
+
+def parallel_phase(card: str) -> tuple[dict, dict]:
     """Phase 7: 4 ranks on the one card (ring_bench.rank_main: K4 against
     its plain version and lone calls that must time out, on both routes,
-    the dryrun at the flagship mode, K4 and step timings); returns K4's
-    entry of the kernels line."""
+    the dryrun at the flagship mode, its soft and hierarchical variants on
+    each of K4's routes, K4 and step timings); returns K4's entry of the
+    kernels line and every kernel's launches on each dryrun."""
     import os
 
     from dvbt_tpu_torch.kernels import _build
-    from dvbt_tpu_torch.parallel import multihost, ring_bench
+    from dvbt_tpu_torch.parallel import multihost, ring_bench, sharding
 
     n_ranks = 4
     out_path = _build.BUILD_DIR / f"parallel_{os.getpid()}.json"
@@ -143,6 +459,26 @@ def parallel_phase(card: str) -> dict:
               flush=True)
     print(f"[time] time-sharded step, 4 ranks x 1 frame, host clock: "
           f"{res['step_ms']} ms ({card})", flush=True)
+    by_path = {"dryrun": res["launches"]}
+    steps = n_ranks * sharding.N_STEPS
+    for v in res["variants"]:
+        n_streams = 2 if v["name"] == "hierarchical" else 1
+        want = {"ring_shift": (n_streams + 1) * steps,
+                "viterbi_depunct": n_streams * 2 * (steps - 1),
+                "viterbi_punct": n_streams * 4 * steps,
+                "byte_coder": n_streams * 4 * steps}
+        print(f"[parallel] dryrun {v['name']} ({v['demap']} demap), K4 "
+              f"waiting {v['waits']}: stages "
+              f"{ {k: round(x['seconds'], 2) for k, x in v['dryrun'].items()} }"
+              f" s, launches {v['launches']} ({card})", flush=True)
+        require(v["launches"] == want,
+                f"dryrun {v['name']} waiting {v['waits']}: launches "
+                f"{v['launches']}, expected {want}")
+        by_path[f"dryrun_{v['name']}"] = v["launches"]
+    require(sorted((v["name"], v["waits"]) for v in res["variants"]) == [
+        (n, w) for n in ("hierarchical", "soft")
+        for w in ("in stream order", "on the SMs")],
+        "the soft and hierarchical dryruns did not run on both K4 routes")
     iq = res["times"]["iq"]
     t_bound, by = bound(2 * iq["bytes"], 0)
     return {"name": "ring_shift", "route": "cuda",
@@ -151,7 +487,7 @@ def parallel_phase(card: str) -> dict:
             "launches": res["launches"]["ring_shift"],
             "max_abs_err": res["k4_err"], "ms": iq["k4"],
             "plain_ms": iq["plain"], "bound_ms": t_bound,
-            "bound_by": by, "library_ms": None}
+            "bound_by": by, "library_ms": None}, by_path
 
 
 def bench_phase(card: str, dev) -> dict:
@@ -160,7 +496,8 @@ def bench_phase(card: str, dev) -> dict:
     steps from the same initial state and packets: TS, rs_uncorrectable
     and every carried-state leaf byte-identical, the TS the packets sent.
     Then bench.run for 2 s with its hard checks; prints its line.  Returns
-    each kernel's launches in one replay of the graph."""
+    each kernel's launches in one replay of the graph, and over the
+    carried steps (one capture and its replays, and the eager steps)."""
     import numpy as np
     import torch
 
@@ -169,6 +506,7 @@ def bench_phase(card: str, dev) -> dict:
     from dvbt_tpu_torch.kernels import viterbi as kvit
     from dvbt_tpu_torch.models import rx as rxm
     from dvbt_tpu_torch.models import tx as txm
+    from dvbt_tpu_torch.ops.outer_interleaver import DELAY_PACKETS
 
     mode, n_mux, n_frames = MODE_8K_UK, 8, 4
     torch.cuda.synchronize()
@@ -233,7 +571,7 @@ def bench_phase(card: str, dev) -> dict:
             and line["rs_uncorrectable_last_block"] == 0
             and line["cuda_graph"] and line["block_samples"] == 18382848,
             f"the bench's line fails its gates: {line}")
-    return per_replay
+    return per_replay, launches
 
 
 def main() -> None:
@@ -248,7 +586,8 @@ def main() -> None:
     import numpy as np
 
     sys.path.insert(0, str(ROOT))
-    from dvbt_tpu_torch import MODE_8K_UK, bench, coder_bench, make_ts_packets
+    from dvbt_tpu_torch import (MODE_8K_UK, bench, coder_bench,
+                                make_ts_packets, profile_slice)
     from dvbt_tpu_torch.mode import SYMBOLS_PER_FRAME, DvbtMode
     from dvbt_tpu_torch.kernels import _build
     from dvbt_tpu_torch.kernels import coder as kcoder
@@ -260,6 +599,9 @@ def main() -> None:
     from dvbt_tpu_torch.ops import reference_signals as refs
     from dvbt_tpu_torch.ops import sync as syncop
     from dvbt_tpu_torch.ops import viterbi as vops
+    from dvbt_tpu_torch.ops.outer_interleaver import DELAY_PACKETS
+    from dvbt_tpu_torch.parallel import time_sharding as tsh
+    from dvbt_tpu_torch.parallel.ring_bench import HIER_8K
     from dvbt_tpu_torch.utils import puncture
     from dvbt_tpu_torch.utils.cplx import cis
     from dvbt_tpu_torch.viterbi_bench import event_ms, main_path_inputs
@@ -321,6 +663,18 @@ def main() -> None:
                                   rate)
     k2_cases["numpy mother-code reference, mux 0 of 8"] = int(np.abs(
         k2_out[0].cpu().numpy().astype(int) - ref.astype(int)).max())
+    # the hierarchical configuration's two coders: 8K alpha=2, 4 frames,
+    # HP rows at 2/3, LP rows at 3/4
+    for part, r in (("hp", HIER_8K.code_rate), ("lp", HIER_8K.code_rate_lp)):
+        nb = HIER_8K.stream_packets_per_block(part) * 4 * 204
+        k2_cases[f"8K alpha=2 {part.upper()} rate {r}, 1 and 8 x {nb} "
+                 "bytes"] = max(k2_blocks(m, nb, r) for m in (1, 8))
+    # and the 2K alpha=2 BER point's, one block a call
+    h2k = hier_2k()
+    for part, r in (("hp", h2k.code_rate), ("lp", h2k.code_rate_lp)):
+        nb = h2k.stream_packets_per_block(part) * 204
+        k2_cases[f"2K alpha=2 {part.upper()} rate {r}, 1 and 8 x {nb} "
+                 "bytes"] = max(k2_blocks(m, nb, r) for m in (1, 8))
     k2_err = max(k2_cases.values())
     require(k2_err == 0, f"K2 differs from its plain version or the numpy "
                          f"reference: {k2_cases}")
@@ -395,6 +749,21 @@ def main() -> None:
     vin = main_path_inputs(dev)
     require(vin.n_bits == flag_bits and vin.k3_body == kvit.auto_body(
         flag_bits), "the timed Viterbi inputs are not the main path's shape")
+    # the hierarchical decoders: 8K alpha=2 (HP 2/3, LP 3/4) at one frame
+    # (the dryrun's) and 4 frames (the hierarchical step's), and the 2K
+    # alpha=2 BER point's (HP 1/2, LP 3/4, one block of 2 frames)
+    for hmode, n_frames_k in ((HIER_8K, 1), (HIER_8K, 4), (h2k, 1)):
+        for part in ("hp", "lp"):
+            r = hmode.code_rate if part == "hp" else hmode.code_rate_lp
+            nb = hmode.stream_packets_per_block(part) * n_frames_k * 204 * 8
+            k1_cases[f"graded, {hmode.transmission.upper()} alpha=2 "
+                     f"{part.upper()} rate {r}, {nb} bits, 1 and 8 muxes"] = \
+                max(k1_blocks(m, nb, r, vops.DEFAULT_BODY,
+                              vops.effective_overlap(r), "graded")
+                    for m in (1, 8))
+    rx_err, graded = k1_on_receiver_metrics(dev)
+    k1_cases["the soft receiver's CSI-weighted metrics, 8K P1 20 dB, 2 "
+             f"blocks ({graded:.1%} graded)"] = rx_err
     k1_out = vin.k1()
     k1_cases["noiseless, flagship 8 muxes"] = int(
         (k1_out.int() - vin.k1_plain().int()).abs().max())
@@ -463,8 +832,17 @@ def main() -> None:
         k3_blocks(m, 100, rate, 1024, 128, "random") for m in (1, 8))
     k3_cases["random, ragged last window (5000 bits)"] = k3_blocks(
         1, 5000, rate, 1024, 128, "random")
-    k3_cases["graded, time-sharded halo (24192 bits, body 1024)"] = \
-        k3_blocks(1, 24192, rate, 1024, kvit.DEFAULT_OVERLAP, "graded")
+    # each stream's halo decode in the dryruns, at its own rate, body and
+    # overlap (an LP halo need not hold whole bytes: then random values)
+    for hmode in (mode, HIER_8K):
+        for part, (n_info, r, body, ov) in tsh.halo_decode_shapes(
+                hmode).items():
+            k3_cases[f"time-sharded halo, {hmode.transmission.upper()} "
+                     f"{hmode.constellation} alpha={hmode.alpha} "
+                     f"{part.upper()} rate {r} "
+                     f"({n_info} bits, body {body}, overlap {ov})"] = \
+                k3_blocks(1, n_info, r, body, ov,
+                          "graded" if n_info % 8 == 0 else "random")
     k3_out = vin.k3()
     k3_cases["noiseless, flagship 8 muxes"] = int(
         (k3_out.int() - vin.k3_plain().int()).abs().max())
@@ -602,8 +980,12 @@ def main() -> None:
           f"packets, rs_uncorrectable 0, TPS bits exact, launches "
           f"{blk_launches}", flush=True)
 
-    # --- 6. timings ------------------------------------------------------
+    # --- 5c. the BER path, 5d. hierarchical, both at full width ----------
     card = card_line()
+    ber_launches = ber_phase(card, dev)
+    hier_launches = hierarchical_phase(card, dev)
+
+    # --- 6. timings ------------------------------------------------------
     for _ in range(2):
         tst, iq = tx(tst, packets[0])
         rst, ts, met = rx(rst, iq)
@@ -655,11 +1037,20 @@ def main() -> None:
               f"{times[name][0]:.3f} ms, plain {times[name][1]:.3f} ms "
               f"({card})", flush=True)
 
+    # the flagship step's device time per stage with each demap
+    stages = {demap: profile_slice._slice(dev, card, demap)["stages"]
+              for demap in ("hard", "soft")}
+    print(f"[time] demap_deinterleave stage of the flagship step (8 muxes x "
+          f"4 frames): hard {stages['hard']['demap_deinterleave']:.3f}, soft "
+          f"{stages['soft']['demap_deinterleave']:.3f} device ms/step; "
+          f"viterbi_decode (K1) hard {stages['hard']['viterbi_decode']:.3f}, "
+          f"soft {stages['soft']['viterbi_decode']:.3f} ({card})", flush=True)
+
     # --- 7. parallel: 4 ranks on the card, K4 and the time-sharded path ---
-    k4_entry = parallel_phase(card)
+    k4_entry, dryrun_launches = parallel_phase(card)
 
     # --- 8. the flagship bench: the CUDA graph step ------------------------
-    per_replay = bench_phase(card, dev)
+    per_replay, bench_launches = bench_phase(card, dev)
 
     imported = sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "dvbt_tpu"))
@@ -690,6 +1081,12 @@ def main() -> None:
               f"{bound(n_bytes, viterbi_ops(*shape, 4))[0]:.4f} ms",
               flush=True)
 
+    # each kernel's launches on each path, every path counted alone
+    by_path = {"slice": {"viterbi_punct": launches["viterbi"],
+                         "byte_coder": launches["coder"]},
+               "block_path": blk_launches, "ber": ber_launches,
+               **hier_launches, **dryrun_launches, "bench": bench_launches}
+
     def entry(name, key, source, replaces, launches_, err, cases=None):
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches_,
@@ -716,6 +1113,8 @@ def main() -> None:
         k4_entry,
     ]
     for k in kernels:
+        k["launches_by_path"] = {path: c[k["name"]] for path, c in
+                                 by_path.items() if c.get(k["name"])}
         print(f"[bound] {k['name']}: {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), kernel at {k['bound_ms'] / k['ms']:.1%} "
               f"of it ({card})", flush=True)

@@ -16,10 +16,15 @@ Layout:
   ops/      — the DSP blocks: the flagship TX -> RX path, acquisition and
               synchronization, channel estimation and TPS
   kernels/  — CUDA kernels (csrc/*.cu) with their plain PyTorch versions
-  models/   — make_transmitter / make_receiver, batched over muxes, and
+  models/   — make_transmitter / make_receiver (hard or soft demap, one
+              stream or hierarchical HP + LP), batched over muxes, the
+              channel models (AWGN, CFO, multipath, Annex B F1/P1) and
               the block-level receive chain from a raw capture
-  utils/    — bit packing, the puncture pattern, carried-state exchange
-              with the JAX package
+  apps/     — ber_sweep (``python3 -m dvbt_tpu_torch.apps.ber_sweep``):
+              BER / PER against SNR, the JAX app's JSON line
+  utils/    — bit packing, the puncture pattern, the (hp, lp) stream
+              pairs of hierarchical modes, carried-state exchange with
+              the JAX package
   bench.py  — the flagship bench (``python3 -m dvbt_tpu_torch.bench``):
               the TX -> RX step as one CUDA graph, bench.py's JSON line
   profile_slice.py — per-stage device time of the flagship step

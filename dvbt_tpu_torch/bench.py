@@ -71,11 +71,11 @@ from .models import rx as rxm
 from .models import tx as txm
 from .ops import inner_coder
 from .ops import viterbi as vops
+from .ops.outer_interleaver import DELAY_PACKETS
 from .utils import puncture
 
 MODES = {"8k64qam23": MODE_8K_UK, "2kqpsk12": MODE_2K_QPSK}
 REALTIME_MSPS = 64 / 7          # one mux in real time, Msamples/s
-DELAY_PACKETS = 11              # outer interleaver + deinterleaver
 PACKET_SEED = 7
 GRAPH_WARMUP_STEPS = 2          # eager steps on a side stream before capture
 

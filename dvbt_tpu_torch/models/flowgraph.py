@@ -54,7 +54,9 @@ def make_block_receiver(mode: DvbtMode, device, n_samples_in: int,
     n_packets) and tps_bits (n_mux, n_frames_out, 68)."""
     if mode.hierarchical:
         raise NotImplementedError(
-            "hierarchical modes are not ported yet (ROADMAP queue 1, item 20)")
+            "hierarchical modes have no block path: the JAX package's "
+            "registry chain it mirrors has no LP demux (models/rx.py "
+            "decodes both streams)")
     if n_frames_out % mode.frames_per_block:
         raise ValueError(f"n_frames_out={n_frames_out} is not a multiple of "
                          f"{mode.frames_per_block} frames per block")

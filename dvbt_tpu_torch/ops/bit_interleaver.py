@@ -41,16 +41,22 @@ def make_bit_interleaver(mode: DvbtMode, device):
     return interleave
 
 
+def _inverse(mode: DvbtMode, device) -> torch.Tensor:
+    """Coded position k of a 126-cell block reads in-block value inv[k]
+    (bit j of cell c is value c*v + j)."""
+    blk, _, nbb = _block_dims(mode)
+    inv = np.empty(nbb, np.int64)
+    inv[blk.reshape(-1)] = np.arange(nbb)
+    return torch.as_tensor(inv, device=device)
+
+
 def make_bit_deinterleaver(mode: DvbtMode, device, scale: int = 1):
     """Returns deinterleave(cells): int32 (..., n_payload) -> uint8
     bits*scale (..., n_payload*v) in coded-stream order.  ``scale=15``
     gives hard decisions as saturated soft metrics {0, 15}."""
-    blk, n_blocks, nbb = _block_dims(mode)
+    _, n_blocks, nbb = _block_dims(mode)
     v = mode.v
-    # coded position blk[c, j] reads bit j of in-block cell c
-    inv = np.empty(nbb, np.int64)
-    inv[blk.reshape(-1)] = np.arange(nbb)
-    inv = torch.as_tensor(inv, device=device)
+    inv = _inverse(mode, device)
     sh = torch.arange(v - 1, -1, -1, dtype=torch.int32, device=device)
 
     def deinterleave(cells: torch.Tensor) -> torch.Tensor:
@@ -58,5 +64,20 @@ def make_bit_deinterleaver(mode: DvbtMode, device, scale: int = 1):
         x = cell_bits.reshape(*cells.shape[:-1], n_blocks, nbb)
         out = x.index_select(-1, inv).to(torch.uint8) * scale
         return out.reshape(*cells.shape[:-1], mode.n_payload * v)
+
+    return deinterleave
+
+
+def make_soft_bit_deinterleaver(mode: DvbtMode, device):
+    """Returns deinterleave(soft): uint8 (..., n_payload, v) per-bit
+    metrics in cell order (bit j = y_j) -> uint8 (..., n_payload*v) in
+    coded-stream order: the hard path's permutation, applied to values."""
+    _, n_blocks, nbb = _block_dims(mode)
+    inv = _inverse(mode, device)
+
+    def deinterleave(soft: torch.Tensor) -> torch.Tensor:
+        x = soft.reshape(*soft.shape[:-2], n_blocks, nbb)
+        out = x.index_select(-1, inv)
+        return out.reshape(*soft.shape[:-2], mode.n_payload * mode.v)
 
     return deinterleave

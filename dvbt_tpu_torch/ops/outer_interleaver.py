@@ -16,6 +16,8 @@ import torch
 from ..mode import OUTER_I, RS_PACKET
 
 TAIL = (OUTER_I - 1) * RS_PACKET  # 2244 bytes of carried history
+# the stream's delay through interleaver and deinterleaver: 11 packets
+DELAY_PACKETS = TAIL // RS_PACKET
 
 
 def _make(n_bytes: int, deinterleave: bool, device):

@@ -8,7 +8,8 @@ more, else 4 on the one card), checks K4 byte for byte against the plain
 send/recv version on the JAX test's payloads and the flagship's two halos
 and that lone calls time out and raise, on each of its two routes (waits
 in stream order, waits on the SMs) whatever the layout would choose, runs
-the parallel dryrun at MODE_8K_UK, times K4, the plain version and, where
+the parallel dryrun at MODE_8K_UK and its soft-demap and hierarchical
+variants (those on each route), times K4, the plain version and, where
 every rank has a card of its own, NCCL send/recv (``dist.batch_isend_irecv``
 over an NCCL group, the library call for the same function), and times the
 time-sharded step with either halo on the host clock.
@@ -33,9 +34,14 @@ import torch
 import torch.distributed as dist
 
 from ..io.ts import make_ts_packets
-from ..mode import MODE_8K_UK
+from ..mode import MODE_8K_UK, DvbtMode
 from . import multihost, ring
 from . import time_sharding as tsh
+
+
+# the hierarchical configuration the card checks: 8K 64-QAM alpha=2, HP at
+# the flagship's rate 2/3, LP 3/4 (the JAX package's 8K hierarchical test)
+HIER_8K = DvbtMode("8k", "64qam", "2/3", "1/32", alpha=2, code_rate_lp="3/4")
 
 
 def halo_payloads() -> dict:
@@ -249,15 +255,37 @@ def jax_test_payloads() -> dict:
     }
 
 
+# the dryrun's variants beside the flagship's hard one: (name, mode, demap)
+VARIANTS = (("soft", MODE_8K_UK, "soft"),
+            ("hierarchical", HIER_8K, "hard"))
+KERNELS = ("ring_shift", "viterbi_depunct", "viterbi_punct", "byte_coder")
+
+
+def _counted(fn) -> tuple:
+    """(fn(), each kernel's launches during it summed over the ranks):
+    every launch counter set to 0 just before, read just after."""
+    from ..kernels import coder as kcoder
+    from ..kernels import viterbi as kvit
+
+    torch.cuda.synchronize()
+    ring.launches = kvit.depunct_launches = 0
+    kvit.launches = kcoder.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = multihost.all_reduce_sum(torch.tensor(
+        [ring.launches, kvit.depunct_launches, kvit.launches,
+         kcoder.launches]))
+    return out, dict(zip(KERNELS, map(int, counts)))
+
+
 def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
     """One rank: K4 against its plain version on the JAX test's payloads
     and the flagship's halos and lone calls that must time out, on either
     route, the dryrun at MODE_8K_UK with every launch counter set
-    to 0 just before it and summed over the ranks just after, then the K4
-    and step timings.  Rank 0 writes the results as JSON to
-    ``out_path``."""
-    from ..kernels import coder as kcoder
-    from ..kernels import viterbi as kvit
+    to 0 just before it and summed over the ranks just after, the soft
+    and the hierarchical dryruns on each of K4's routes (counted the same
+    way), then the K4 and step timings.  Rank 0 writes the results as
+    JSON to ``out_path``."""
     from . import sharding
 
     device = multihost.rank_device(rank)
@@ -274,20 +302,22 @@ def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
             err, waits = check_ring(payloads, device)
             routes.append({"waits": waits, "k4_err": err,
                            "timeout_error": check_timeout(device)})
-    torch.cuda.synchronize()
-    ring.launches = kvit.depunct_launches = 0
-    kvit.launches = kcoder.launches = 0
-    dry = sharding.dryrun(MODE_8K_UK, n_ranks, muxes_per_rank=2)
-    torch.cuda.synchronize()
-    counts = multihost.all_reduce_sum(torch.tensor(
-        [ring.launches, kvit.depunct_launches, kvit.launches,
-         kcoder.launches]))
+    dry, launches = _counted(lambda: sharding.dryrun(
+        MODE_8K_UK, n_ranks, muxes_per_rank=2))
+    runs = []
+    for name, mode, demap in VARIANTS:
+        for on_sms in (False, True):
+            with waiting(on_sms):
+                out, counts = _counted(lambda: sharding.dryrun(
+                    mode, n_ranks, muxes_per_rank=2, demap=demap))
+            runs.append({"name": name, "demap": demap,
+                         "waits": "on the SMs" if on_sms
+                         else "in stream order",
+                         "dryrun": out, "launches": counts})
     res = {"ranks": n_ranks, "card_per_rank": own_cards,
            "k4_err": max(r["k4_err"] for r in routes),
            "payloads": list(payloads), "routes": routes,
-           "launches": dict(zip(("ring_shift", "viterbi_depunct",
-                                 "viterbi_punct", "byte_coder"),
-                                map(int, counts))),
+           "launches": launches, "variants": runs,
            "dryrun": dry, "times": time_ring(halos, device, nccl),
            "step_ms": time_steps(MODE_8K_UK, device)}
     if rank == 0:

@@ -1,10 +1,15 @@
 """Where the time goes, on one CUDA device.
 
     python3 -m dvbt_tpu_torch.profile_slice            # the flagship step
+    python3 -m dvbt_tpu_torch.profile_slice --demap soft   # its soft RX
+    python3 -m dvbt_tpu_torch.profile_slice --hier     # hierarchical
     python3 -m dvbt_tpu_torch.profile_slice --blocks   # the block path
 
 The flagship slice: MODE_8K_UK, 8 muxes x 4 frames per step, TX then
-symbol-aligned RX.  With ``--blocks``, the block-level receive path
+symbol-aligned RX, whose demap is hard unless ``--demap soft`` asks for
+the CSI-weighted soft metrics.  With ``--hier``, the same step at the
+hierarchical configuration (parallel/ring_bench.HIER_8K: 8K 64-QAM
+alpha=2, HP 2/3 + LP 3/4).  With ``--blocks``, the block-level receive path
 (models/flowgraph.py) at the same mode and size: 8 raw captures (the
 transmitter's stream with a per-mux delay and CFO) from the synchronizer
 to the descrambler.  Prints:
@@ -25,9 +30,9 @@ The Chrome trace is kept at ``build/dvbt_tpu_torch/slice_trace.json``
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -35,11 +40,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import MODE_8K_UK, make_ts_packets
+from .utils.streams import join, split
 from .kernels import _build
 from .models import flowgraph
 from .models import rx as rxm
 from .models import tx as txm
 from .ops import sync as syncop
+from .parallel.ring_bench import HIER_8K
 from .utils.cplx import cis
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -67,9 +74,11 @@ def _union_us(spans) -> float:
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def _profile(step, card: str, trace_path) -> None:
-    """One torch.profiler trace of PROFILED_STEPS calls of step(): device
-    busy time, idle share and device ms per profiler range."""
+def _profile(step, card: str, trace_path) -> dict:
+    """One torch.profiler trace of PROFILED_STEPS calls of step(); returns
+    per call the device busy ms (``busy``), the wall ms (``wall``), the
+    idle share (``idle``) and the device ms inside each profiler range
+    (``stages``)."""
     n = PROFILED_STEPS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -100,10 +109,13 @@ def _profile(step, card: str, trace_path) -> None:
     print(f"profiled {n} steps, one trace ({card}): device busy "
           f"{busy_us / 1e3 / n:.3f} ms/step, wall {wall_us / 1e3 / n:.3f} "
           f"ms/step, idle share {1 - busy_us / wall_us:.4f}, "
-          f"{len(dev_spans)} device operations")
+          f"{len(dev_spans)} device operations", flush=True)
     for name, us in sorted(per_stage.items(), key=lambda kv: -kv[1]):
         print(f"  {name:28s} {us / 1e3 / n:9.3f} ms/step "
-              f"{us / total * 100:5.1f}%")
+              f"{us / total * 100:5.1f}% ({card})", flush=True)
+    return {"busy": busy_us / 1e3 / n, "wall": wall_us / 1e3 / n,
+            "idle": 1 - busy_us / wall_us,
+            "stages": {name: us / 1e3 / n for name, us in per_stage.items()}}
 
 
 def _peak_mb(step) -> float:
@@ -113,12 +125,17 @@ def _peak_mb(step) -> float:
     return torch.cuda.max_memory_allocated() / 1e6
 
 
-def _slice(dev, card: str) -> None:
-    mode, n_mux, n_frames = MODE_8K_UK, 8, 4
+def _slice(dev, card: str, demap: str = "hard", hier: bool = False) -> dict:
+    """Profiles the flagship step (with ``hier`` its hierarchical
+    configuration) with the receiver's ``demap``; returns _profile's
+    reading."""
+    mode, n_mux, n_frames = (HIER_8K if hier else MODE_8K_UK), 8, 4
     tx, n_pk, n_samp = txm.make_transmitter(mode, dev, n_frames)
-    rx, _, _ = rxm.make_receiver(mode, dev, n_frames, metrics="min")
-    pk = torch.as_tensor(make_ts_packets(n_pk * n_mux, seed=1).reshape(
-        n_mux, n_pk, 188), device=dev)
+    rx, _, _ = rxm.make_receiver(mode, dev, n_frames, metrics="min",
+                                 demap=demap)
+    pk = join([torch.as_tensor(make_ts_packets(n * n_mux, seed=1 + k)
+                               .reshape(n_mux, n, 188), device=dev)
+               for k, n in enumerate(split(n_pk, hier))], hier)
     st = {"tx": txm.init_tx_state(mode, n_mux, dev),
           "rx": rxm.init_rx_state(mode, n_mux, dev)}
 
@@ -136,10 +153,14 @@ def _slice(dev, card: str) -> None:
         step()
     ms = {"tx": _host_ms(step_tx, 10), "rx": _host_ms(step_rx, 10),
           "tx+rx": _host_ms(step, 10)}
-    print(f"unprofiled ms/step: TX {ms['tx']:.3f}, RX {ms['rx']:.3f}, "
-          f"TX+RX {ms['tx+rx']:.3f} ({n_mux} x {n_samp} samples); peak "
-          f"device memory {_peak_mb(step):.1f} MB ({card})")
-    _profile(step, card, _build.BUILD_DIR / "slice_trace.json")
+    print(f"unprofiled ms/step, {'hierarchical, ' if hier else ''}{demap} "
+          f"demap: TX {ms['tx']:.3f}, RX "
+          f"{ms['rx']:.3f}, TX+RX {ms['tx+rx']:.3f} ({n_mux} x {n_samp} "
+          f"samples); peak device memory {_peak_mb(step):.1f} MB ({card})",
+          flush=True)
+    name = ("slice_trace.json" if demap == "hard" and not hier
+            else f"slice_{demap}{'_hier' if hier else ''}.json")
+    return _profile(step, card, _build.BUILD_DIR / name)
 
 
 def _blocks(dev, card: str) -> None:
@@ -174,10 +195,14 @@ def _blocks(dev, card: str) -> None:
 
 
 def main(argv: list[str] | None = None) -> None:
-    argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--blocks"]):
-        raise SystemExit("usage: python3 -m dvbt_tpu_torch.profile_slice "
-                         "[--blocks]")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--blocks", action="store_true",
+                    help="profile the block path instead of the slice")
+    ap.add_argument("--demap", choices=("hard", "soft"), default="hard",
+                    help="the slice receiver's demap")
+    ap.add_argument("--hier", action="store_true",
+                    help="the slice at the hierarchical configuration")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
     card = subprocess.run(
@@ -186,7 +211,10 @@ def main(argv: list[str] | None = None) -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    (_blocks if argv else _slice)(dev, card)
+    if args.blocks:
+        _blocks(dev, card)
+    else:
+        _slice(dev, card, args.demap, args.hier)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The port's halo recompute (dvbt_tpu_torch/parallel/time_sharding.py)
 against the JAX package's on the CPU, in one process: the halo size of
-every non-hierarchical mode, the TX state from a 12-packet halo, the RX
-state from a real transmitted sample halo, and the time-sharded carry
-handed across in both directions.  Inputs come from seeded numpy."""
+every mode, the TX state of each stream from a 12-packet halo, the RX
+state from a real transmitted sample halo (hard and soft demap, one
+stream and two), and the time-sharded carry handed across in both
+directions.  Inputs come from seeded numpy."""
 
 import itertools
 
@@ -43,7 +44,20 @@ NON_HIERARCHICAL = [
 ]
 
 
-@pytest.mark.parametrize("mode", NON_HIERARCHICAL, ids=_mid)
+HIERARCHICAL = [
+    DvbtMode(t, c, r, alpha=a, code_rate_lp=lp)
+    for t, c, a, (r, lp) in itertools.product(
+        ("2k", "8k"), ("16qam", "64qam"), (1, 2, 4),
+        (("1/2", "7/8"), ("2/3", "3/4"), ("7/8", "1/2")))
+]
+
+
+def _hid(mode) -> str:
+    return _mid(mode) + f"-a{mode.alpha}-{mode.code_rate_lp}"
+
+
+@pytest.mark.parametrize("mode", NON_HIERARCHICAL + HIERARCHICAL,
+                         ids=lambda m: _hid(m) if m.alpha else _mid(m))
 def test_rx_halo_symbols_match_jax(mode):
     h = t_tsh.rx_halo_symbols(port_mode(mode))
     assert h == j_tsh.rx_halo_symbols(mode)
@@ -77,6 +91,74 @@ def test_tx_state_from_halo_matches_jax(mode, block_idx):
     got = t_tsh.make_tx_state_from_halo(port_mode(mode), CPU)(
         block_idx, torch.as_tensor(halo)[None])
     _leaves_equal(got, want)
+
+
+@pytest.mark.parametrize("block_idx", [0, 5])
+def test_lp_tx_state_from_halo_matches_jax(block_idx):
+    """The LP stream's TX state (its own packet cadence, no frame_idx)."""
+    mode = DvbtMode("2k", "16qam", "1/2", alpha=2, code_rate_lp="3/4")
+    halo = np.random.default_rng(block_idx + 1).integers(
+        0, 256, (j_tsh.HALO_PACKETS, 188)).astype(np.uint8)
+    want = j_tsh.make_tx_state_from_halo(mode, "lp")(jnp.int32(block_idx),
+                                                      jnp.asarray(halo))
+    got = t_tsh.make_tx_state_from_halo(port_mode(mode), CPU, "lp")(
+        block_idx, torch.as_tensor(halo)[None])
+    assert "frame_idx" not in got
+    _leaves_equal(got, want)
+
+
+def _sent_block(mode, seed=17):
+    """One block of the JAX transmitter's IQ (numpy)."""
+    tx, n_pk, _ = j_tx.make_transmitter(mode)
+    if mode.hierarchical:
+        pk = tuple(jnp.asarray(make_ts_packets(n, seed=seed + k))
+                   for k, n in enumerate(n_pk))
+    else:
+        pk = jnp.asarray(make_ts_packets(n_pk, seed=seed))
+    _, iq = tx(j_tx.init_tx_state(mode), pk)
+    return np.array(iq)
+
+
+def _stream_state_equal(got, stream):
+    """The recomputed state's byte leaves against the streaming receiver's
+    state after the same block."""
+    torch.testing.assert_close(got["deint_tail"], stream["deint_tail"],
+                               atol=0, rtol=0)
+    for k, v in stream["viterbi"].items():
+        assert torch.equal(got["viterbi"][k], v), k
+
+
+@pytest.mark.parametrize("mode,demap", [
+    (DvbtMode("2k", "16qam", "2/3"), "soft"),
+    (DvbtMode("2k", "16qam", "1/2", alpha=2, code_rate_lp="3/4"), "hard"),
+    (DvbtMode("2k", "16qam", "1/2", alpha=2, code_rate_lp="3/4"), "soft"),
+], ids=["16qam-soft", "hier-a2-hard", "hier-a2-soft"])
+@pytest.mark.parametrize("block_idx", [0, 3])
+def test_rx_state_from_halo_soft_and_hierarchical_match_jax(mode, demap,
+                                                            block_idx):
+    """The soft and two-stream halo decode equals the JAX package's (the
+    LP halo of 2K 16-QAM 3/4 holds 2268 info bits a symbol, not whole
+    bytes) and, past stream start, the state the port's streaming receiver
+    with the same demap carries out of that block, both streams."""
+    iq = _sent_block(mode)
+    H = j_tsh.rx_halo_symbols(mode)
+    halo = iq[-H * mode.symbol_len:]
+    want = j_tsh.make_rx_state_from_halo(mode, demap)(jnp.int32(block_idx),
+                                                       jnp.asarray(halo))
+    pmode = port_mode(mode)
+    got = t_tsh.make_rx_state_from_halo(pmode, CPU, demap)(
+        block_idx, torch.as_tensor(halo)[None])
+    _leaves_equal(got, want, atol=ATOL)
+    if block_idx:
+        rx, _, _ = t_rx.make_receiver(pmode, CPU, metrics="min",
+                                      demap=demap)
+        stream, _, _ = rx(t_rx.init_rx_state(pmode, 1, CPU),
+                          torch.as_tensor(iq)[None])
+        _stream_state_equal(got, stream)
+        torch.testing.assert_close(got["chan_tail"], stream["chan_tail"],
+                                   atol=ATOL, rtol=0)
+        if mode.hierarchical:
+            _stream_state_equal(got["lp"], stream["lp"])
 
 
 @pytest.mark.parametrize("mode", MODES, ids=_mid)
@@ -142,5 +224,13 @@ def test_carry_round_trip():
     back = t_state.carry_to_jax(carry)
     for a, b in zip(back, jcarry):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        t_state.carry_from_jax(((jcarry[0], jcarry[0]),) + jcarry[1:], CPU)
+    # a hierarchical carry: the (hp, lp) pair of packet tails
+    lp = rng.integers(0, 256, (12, 188)).astype(np.uint8)
+    hcarry = ((jcarry[0], lp),) + jcarry[1:]
+    carry = t_state.carry_from_jax(hcarry, CPU)
+    assert isinstance(carry[0], tuple) and len(carry[0]) == 2
+    back = t_state.carry_to_jax(carry)
+    for a, b in zip(back[0], hcarry[0]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    with pytest.raises(ValueError, match="packet tail"):
+        t_state.carry_from_jax((jcarry[1],) + jcarry[1:], CPU)

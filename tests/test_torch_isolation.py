@@ -1,8 +1,10 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and its own copies of the mode object, the EN 300 744 tables and
-the TS helpers equal the JAX package's originals."""
+package, and its own copies of the mode object, the EN 300 744 tables,
+the TS helpers, the apps' CLI plumbing, the Annex B echo tables and the
+host resampler equal the JAX package's originals."""
 
 import dataclasses
+import inspect
 import itertools
 import os
 import subprocess
@@ -13,10 +15,14 @@ import pytest
 
 from dvbt_tpu import mode as j_mode
 from dvbt_tpu import tables as j_tables
+from dvbt_tpu.apps import common as j_common
 from dvbt_tpu.io import ts as j_ts
+from dvbt_tpu.models import channel as j_channel
 from dvbt_tpu_torch import mode as t_mode
 from dvbt_tpu_torch import tables as t_tables
+from dvbt_tpu_torch.apps import common as t_common
 from dvbt_tpu_torch.io import ts as t_ts
+from dvbt_tpu_torch.models import channel as t_channel
 from dvbt_tpu_torch.utils.state import mode_from_jax as port_mode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,6 +51,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(loaded) >= 35                       # every module imported
     assert {f"dvbt_tpu_torch.parallel.{m}" for m in
             ("multihost", "ring", "sharding", "time_sharding")} <= loaded
+    assert {"dvbt_tpu_torch.apps.ber_sweep", "dvbt_tpu_torch.apps.common",
+            "dvbt_tpu_torch.models.channel"} <= loaded
 
 
 # the mode grid of tests/test_mode_grid.py in both transmission modes, and
@@ -196,3 +204,28 @@ def test_ts_helpers_match_jax(tmp_path):
     t_ts.write_ts_file(str(tmp_path / "o.ts"), got)
     assert np.array_equal(t_ts.read_ts_file(str(tmp_path / "o.ts")), pk)
     assert t_ts.find_sync(junk) == -1
+
+
+def _functions(module) -> dict:
+    return {n: v for n, v in vars(module).items()
+            if inspect.isfunction(v) and v.__module__ == module.__name__}
+
+
+def test_apps_common_is_a_whole_copy():
+    """apps/common.py: the same functions, each with the same source."""
+    got, want = _functions(t_common), _functions(j_common)
+    assert set(got) == set(want)
+    for name in want:
+        assert inspect.getsource(got[name]) == inspect.getsource(want[name])
+
+
+@pytest.mark.parametrize("name", ["_ANNEX_B_RHO", "_ANNEX_B_THETA",
+                                  "_ANNEX_B_TAU_US"])
+def test_annex_b_tables_equal_the_originals(name):
+    got, want = getattr(t_channel, name), getattr(j_channel, name)
+    assert type(got) is tuple and got == want
+
+
+def test_resample_ppm_is_a_whole_copy():
+    assert inspect.getsource(t_channel.resample_ppm) == \
+        inspect.getsource(j_channel.resample_ppm)

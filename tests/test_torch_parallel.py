@@ -25,6 +25,7 @@ from dvbt_tpu_torch.parallel import time_sharding as t_tsh
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
+HIER = DvbtMode("2k", "16qam", "1/2", alpha=2, code_rate_lp="3/4")
 D = 4
 N_STEPS = 2
 DEADLINE_S = 300.0
@@ -246,12 +247,156 @@ def test_a_failing_rank_fails_the_launch():
 
 
 @pytest.mark.parametrize("mode,demap,item", [
-    (MODE_2K_QPSK, "soft", "item 19"),
-    (DvbtMode("2k", "16qam", "1/2", alpha=2, code_rate_lp="3/4"), "hard",
-     "item 20"),
+    (MODE_2K_QPSK, "bogus", "demap"),
+    (HIER, "hard", "halo"),
 ], ids=["soft", "hierarchical"])
 def test_unported_options_raise(mode, demap, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_tsh.make_time_sharded_loopback(mode, CPU, demap=demap)
-    with pytest.raises(NotImplementedError, match=item):
-        t_tsh.make_rx_state_from_halo(mode, CPU, demap=demap)
+    """Option values the time-sharded path does not have raise ValueError:
+    a demap other than hard or soft, a halo other than ring or
+    ppermute."""
+    halo = "bogus" if item == "halo" else "ring"
+    with pytest.raises(ValueError, match=item):
+        t_tsh.make_time_sharded_loopback(mode, CPU, halo=halo, demap=demap)
+    if item == "demap":
+        with pytest.raises(ValueError, match=item):
+            t_tsh.make_rx_state_from_halo(mode, CPU, demap=demap)
+
+
+# --- soft and hierarchical: the time-sharded loopback and mux-DP -------------
+
+def _variant_rank(rank, n_ranks, out_dir, variants):
+    for name, mode, demap, packets in variants:
+        for halo in ("ppermute", "ring"):
+            ts, bad = sharding.run_time_sharded(mode, CPU, packets, N_STEPS,
+                                                halo, demap)
+            for s, t in enumerate(ts if mode.hierarchical else (ts,)):
+                np.save(Path(out_dir) / f"{name}_{halo}_{s}_{rank}.npy",
+                        t.numpy())
+
+
+def _variants():
+    """(name, mode, demap, packets) of the soft and the hierarchical
+    time-sharded runs."""
+    out = [("soft", MODE_2K_QPSK, "soft",
+            make_ts_packets(MODE_2K_QPSK.packets_per_block * D * N_STEPS,
+                            seed=6))]
+    n_hp, n_lp = (HIER.stream_packets_per_block(s) for s in ("hp", "lp"))
+    out.append(("hier", HIER, "hard",
+                (make_ts_packets(n_hp * D * N_STEPS, seed=7),
+                 make_ts_packets(n_lp * D * N_STEPS, seed=8))))
+    return out
+
+
+@pytest.fixture(scope="module")
+def variant_outputs(tmp_path_factory):
+    """The ranks' output directory and, per variant, (name, mode, demap,
+    packets, the JAX streaming TS, the port's streaming TS), each stream's
+    TS a list entry."""
+    out = tmp_path_factory.mktemp("variants")
+    variants = _variants()
+    _launch(_variant_rank, D, str(out), variants)
+    n_blocks = D * N_STEPS
+    refs = []
+    for name, mode, demap, packets in variants:
+        ref_t = sharding.streaming_reference(mode, CPU, packets, n_blocks,
+                                             demap)
+        refs.append((name, mode, demap, packets,
+                     _jax_streaming_variant(mode, demap, packets, n_blocks),
+                     list(ref_t) if mode.hierarchical else [ref_t]))
+    return out, refs
+
+
+def _jax_mode(mode):
+    from dvbt_tpu.mode import DvbtMode as JMode
+    return JMode(mode.transmission, mode.constellation, mode.code_rate,
+                 mode.guard, mode.alpha, mode.code_rate_lp)
+
+
+def _jax_streaming_variant(mode, demap, packets, n_blocks):
+    """The JAX package's streaming chain: TS per stream."""
+    import jax.numpy as jnp
+
+    from dvbt_tpu.models import rx as j_rx
+    from dvbt_tpu.models import tx as j_tx
+
+    jm = _jax_mode(mode)
+    tx, n_pk, _ = j_tx.make_transmitter(jm)
+    rx, _, _ = j_rx.make_receiver(jm, demap=demap)
+    hier = mode.hierarchical
+    pks = packets if hier else (packets,)
+    nps = n_pk if hier else (n_pk,)
+    tst, rst = j_tx.init_tx_state(jm), j_rx.init_rx_state(jm)
+    outs = [[] for _ in pks]
+    for b in range(n_blocks):
+        blk = tuple(jnp.asarray(p[b * n:(b + 1) * n])
+                    for p, n in zip(pks, nps))
+        tst, iq = tx(tst, blk if hier else blk[0])
+        rst, ts, _ = rx(rst, iq)
+        for o, t in zip(outs, ts if hier else (ts,)):
+            o.append(np.asarray(t))
+    return [np.concatenate(o) for o in outs]
+
+
+@pytest.mark.parametrize("halo", ["ppermute", "ring"])
+@pytest.mark.parametrize("k", range(2), ids=["soft", "hierarchical"])
+def test_time_sharded_variants_match_streaming(variant_outputs, k, halo):
+    """The soft and the two-stream time-sharded loopbacks (4 gloo ranks,
+    2 steps, three halos a step in the two-stream one) equal the JAX
+    package's streaming chain and the port's, each stream byte for
+    byte."""
+    out, refs = variant_outputs
+    name, mode, demap, packets, ref_j, ref_t = refs[k]
+    assert len(ref_j) == len(mode.streams)
+    for s, (rj, rt) in enumerate(zip(ref_j, ref_t)):
+        got = np.stack([np.load(out / f"{name}_{halo}_{s}_{r}.npy")
+                        for r in range(D)])
+        got = got.transpose(1, 0, 2, 3).reshape(-1, 188)
+        assert np.array_equal(got, rj), s
+        assert np.array_equal(got, rt), s
+
+
+def _hier_mux_rank(rank, n_ranks, out_dir, packets):
+    step, init_states, n_pk = sharding.make_sharded_loopback(
+        HIER, CPU, muxes_per_rank=2)
+    states = init_states()
+    for s in range(N_STEPS):
+        mine = tuple(torch.as_tensor(p[s, 2 * rank:2 * rank + 2])
+                     for p in packets)
+        states, ts, fleet = step(states, mine)
+        for k, t in enumerate(ts):
+            np.save(Path(out_dir) / f"ts{s}_{k}_{rank}.npy", t.numpy())
+        np.save(Path(out_dir) / f"fleet{s}_{rank}.npy", np.asarray(
+            [int(fleet[f"{p}_total"]) for p in (
+                "rs_corrected", "rs_uncorrectable", "lp_rs_uncorrectable")]))
+
+
+def test_hierarchical_mux_dp_matches_jax_sharded_loopback(tmp_path):
+    """Mux-DP with (hp, lp) pairs over 2 gloo ranks x 2 muxes equals the
+    JAX package's mux-DP on a 2-device CPU mesh: both streams' TS and the
+    fleet totals, LP's included."""
+    import jax
+    import jax.numpy as jnp
+
+    from dvbt_tpu.parallel import sharding as j_sharding
+
+    n_pk = tuple(HIER.stream_packets_per_block(s) for s in ("hp", "lp"))
+    packets = tuple(np.stack([
+        np.stack([make_ts_packets(n, seed=100 * s + 10 * k + m)
+                  for m in range(MUX_B)]) for s in range(N_STEPS)])
+        for k, n in enumerate(n_pk))
+    _launch(_hier_mux_rank, MUX_RANKS, str(tmp_path), packets)
+    mesh = j_sharding.make_mux_mesh(jax.devices()[:MUX_RANKS])
+    step, init_states, _ = j_sharding.make_sharded_loopback(
+        _jax_mode(HIER), mesh, MUX_B // MUX_RANKS)
+    states = init_states()
+    for s in range(N_STEPS):
+        states, ts, fleet = step(states, tuple(jnp.asarray(p[s])
+                                               for p in packets))
+        for k in range(2):
+            got = np.concatenate([np.load(tmp_path / f"ts{s}_{k}_{r}.npy")
+                                  for r in range(MUX_RANKS)])
+            assert np.array_equal(got, np.asarray(ts[k])), (s, k)
+        want = [int(fleet[f"{p}_total"]) for p in (
+            "rs_corrected", "rs_uncorrectable", "lp_rs_uncorrectable")]
+        for r in range(MUX_RANKS):
+            assert np.load(tmp_path / f"fleet{s}_{r}.npy").tolist() == want

@@ -269,7 +269,7 @@ def _port_viterbi_shapes(transmission):
     one transmission mode: the receiver (K1, body 1024, the effective
     overlap) and the viterbi_decoder block (K3, auto_body, overlap 128) at
     one block and at 4 frames, and the time-sharded halo recompute (K3,
-    body 1024)."""
+    body 1024), each stream of the hierarchical modes too."""
     shapes = set()
     for const in ("qpsk", "16qam", "64qam"):
         for rate in RATES:
@@ -284,6 +284,24 @@ def _port_viterbi_shapes(transmission):
                       * int(mode.stream_info_bits_per_symbol("hp")))
             shapes.add((n_info, min(1024, n_info),
                         t_vit.effective_overlap(rate)))
+    # hierarchical modes: K1 on each stream's block at its rate, K3 on each
+    # stream's halo (an LP halo need not hold whole bytes)
+    for const in ("16qam", "64qam"):
+        for alpha in (1, 2, 4):
+            for rate in RATES:
+                for rate_lp in RATES:
+                    mode = port_mode(DvbtMode(transmission, const, rate,
+                                              alpha=alpha,
+                                              code_rate_lp=rate_lp))
+                    hd = t_ts.rx_halo_symbols(mode) - t_ts.CHAN_WARMUP
+                    for s_, r in (("hp", rate), ("lp", rate_lp)):
+                        n_bits = mode.stream_packets_per_block(s_) * 204 * 8
+                        shapes.add((n_bits, t_vit.DEFAULT_BODY,
+                                    t_vit.effective_overlap(r)))
+                        n_info = hd * int(mode.stream_info_bits_per_symbol(
+                            s_))
+                        shapes.add((n_info, min(1024, n_info),
+                                    t_vit.effective_overlap(r)))
     return sorted(shapes)
 
 
@@ -389,7 +407,8 @@ def test_viterbi_wrapper_rejects_other_devices():
         t_kvit.viterbi_punct(coded, tail, 24, "1/2", 8)
 
 
-@pytest.mark.parametrize("option,item", [({"demap": "soft"}, 19)])
+@pytest.mark.parametrize("option,item", [({"demap": "bogus"}, "demap")])
 def test_receiver_rejects_unported_options(option, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    """An option value the receiver does not have raises ValueError."""
+    with pytest.raises(ValueError, match=item):
         t_rx.make_receiver(port_mode(MODE_2K_QPSK), "cpu", **option)

@@ -205,6 +205,15 @@ def test_transmitter_matches_golden(name, mode):
 
 
 def test_transmitter_rejects_hierarchical():
-    mode = DvbtMode("2k", "16qam", "3/4", alpha=2)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        t_tx.make_transmitter(port_mode(mode), "cpu")
+    """A hierarchical transmitter takes a (packets_hp, packets_lp) pair and
+    refuses a single tensor, as a single-stream one refuses a pair."""
+    mode = port_mode(DvbtMode("2k", "16qam", "3/4", alpha=2))
+    tx, (n_hp, n_lp), _ = t_tx.make_transmitter(mode, "cpu")
+    pk = torch.zeros(1, n_hp, 188, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="pair"):
+        tx(t_tx.init_tx_state(mode, 1, "cpu"), pk)
+    flat = port_mode(MODE_2K_QPSK)
+    tx1, n_pk, _ = t_tx.make_transmitter(flat, "cpu")
+    pk1 = torch.zeros(1, n_pk, 188, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="pair"):
+        tx1(t_tx.init_tx_state(flat, 1, "cpu"), (pk1, pk1))
