@@ -30,7 +30,16 @@ the host clock and its device busy time from one profiler trace), the
 hierarchical configuration (8K 64-QAM alpha=2, HP 2/3 + LP 3/4, 8 muxes
 x 4 frames, noiseless, both streams byte-exact, K1 and K2 twice a step)
 and the 2K alpha=2 soft point at 6 dB within 25% of its curve for each
-of 4 seeds, hard metrics there outside it.  Then
+of 4 seeds, hard metrics there outside it.  Then the streaming receiver
+(models.loopback.StreamingReceiver, MODE_8K_UK, one-frame blocks): a raw
+stream with a delay and a 0.31-subcarrier CFO through pipeline=4, locked
+and byte-exact; the sample-clock loop held at 2 ppm (pipeline=0) and its
+limits read at 2 ppm with pipeline=4 and at 40 ppm; a checkpoint resume,
+byte-identical; AutoStreamingReceiver told only "8k" on a MODE_8K_UK and
+an 8K alpha=2 capture, each detected and byte-exact; the bench's tracked
+variant (1 mux x 8 frames a block, K1 and K2 also checked at that shape)
+with its hard checks and a profiled tracked block; the tx and rx apps
+through files.  Then
 timings (with the flagship step's device time per stage, hard and soft
 demap), and the parallel package: 4 rank processes on the one
 card (spawned, gloo between them) check K4, the halo ring over CUDA IPC,
@@ -100,6 +109,22 @@ FAULT_DB = 0.25
 HIER_BER_TOL = 0.25
 HIER_BER_BLOCKS = 32
 HIER_BER_SEEDS = tuple(range(4))
+# the streaming phase: raw 8K streams of STREAM_BLOCKS one-frame blocks
+# with a delay and a carrier offset of STREAM_CFO subcarrier, fed in
+# ragged chunks of STREAM_CHUNK samples.  The sample-clock loop is held at
+# STREAM_PPM with pipeline=0: the time channel estimator of MODE_8K_UK
+# follows a block-wise timing correction up to ~2 ppm (5 ppm leaves ~40%
+# of the packets of every block uncorrectable, in the JAX package's
+# receiver as in the port's), and with blocks in flight the loop's
+# correction comes late and it oscillates.  Both limits are read at
+# READ_PPM and at STREAM_PPM with pipeline=4 and printed, not held.
+STREAM_BLOCKS = 24
+STREAM_DELAY = 3001
+STREAM_CFO = 0.31
+STREAM_CHUNK = 1_000_003
+STREAM_PPM = 2.0
+READ_PPM = 40.0
+TRACKED_FRAMES = 8
 
 
 def card_line() -> str:
@@ -412,6 +437,237 @@ def hierarchical_phase(card: str, dev) -> dict:
     return {"hierarchical_8k": launches, "hierarchical_2k_ber": launches2}
 
 
+def _stream_check(reports, packets, n_pk, block_samples, delay, ppm,
+                  what: str) -> int:
+    """Hard checks of one streaming run: lock at the first report and
+    held, no uncorrectable packet after it, the TS the packets sent from
+    the locked block on.  Returns the packets compared."""
+    from dvbt_tpu_torch.ops import sync as syncop
+    from dvbt_tpu_torch.ops.outer_interleaver import DELAY_PACKETS
+    import numpy as np
+
+    require(len(reports) >= 3 and reports[0].reacquired,
+            f"{what}: no lock ({len(reports)} reports)")
+    reacq = sum(bool(r.reacquired) for r in reports[1:])
+    bad = sum(int(r.rs_uncorrectable.sum()) for r in reports[1:])
+    require(reacq == 0 and bad == 0, f"{what}: {reacq} re-acquisitions, "
+            f"{bad} uncorrectable packets after lock")
+    f = 1.0 + ppm * 1e-6
+    k0 = round(((reports[0].stream_offset + delay) / f
+                + syncop.DEFAULT_BACKOFF) / block_samples)
+    out = np.concatenate([r.packets for r in reports])[DELAY_PACKETS:]
+    want = packets[k0 * n_pk:]
+    n = min(len(out), len(want))
+    require(n >= (len(reports) - 1) * n_pk and np.array_equal(
+        out[:n], want[:n]), f"{what}: the TS differs from the packets sent")
+    return n
+
+
+def streaming_phase(card: str, dev, mode=None, hier=None,
+                    frames: int = TRACKED_FRAMES,
+                    app_args: tuple = ()) -> dict:
+    """The streaming receiver at full width (MODE_8K_UK; the rehearsal on
+    the CPU passes 2K modes): models.loopback.StreamingReceiver with
+    pipeline=4 on a raw stream with a delay and CFO, then the sample-clock
+    loop at STREAM_PPM (held) and its limits (read), a checkpoint resume,
+    AutoStreamingReceiver on a single-stream and an alpha=2 capture, the
+    bench's tracked variant with its hard checks and a profiled tracked
+    block, and the tx and rx apps through files.  Returns K1's and K2's
+    launches on the streaming drive and on the tracked variant."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dvbt_tpu_torch import MODE_8K_UK, bench, make_ts_packets
+    from dvbt_tpu_torch import profile_slice
+    from dvbt_tpu_torch.io import ts as tsio
+    from dvbt_tpu_torch.models import auto, channel
+    from dvbt_tpu_torch.models import tx as txm
+    from dvbt_tpu_torch.models.loopback import StreamingReceiver
+    from dvbt_tpu_torch.ops import sync as syncop
+    from dvbt_tpu_torch.ops.outer_interleaver import DELAY_PACKETS
+    from dvbt_tpu_torch.parallel.ring_bench import HIER_8K
+
+    mode = mode or MODE_8K_UK
+    hier = hier or HIER_8K
+    t_phase = time.perf_counter()
+
+    def tx_stream(m, n_blocks, seed):
+        """[packets per stream], packets a block per stream, complex64
+        stream at STREAM_CFO (numpy)."""
+        tx, n_pk, _ = txm.make_transmitter(m, dev)
+        n_pk = n_pk if m.hierarchical else (n_pk,)
+        pks = [make_ts_packets(n * n_blocks, seed=seed + k)
+               for k, n in enumerate(n_pk)]
+        st = txm.init_tx_state(m, 1, dev)
+        chunks = []
+        for b in range(n_blocks):
+            arg = [torch.as_tensor(p[b * n:(b + 1) * n], device=dev)[None]
+                   for p, n in zip(pks, n_pk)]
+            st, iq = tx(st, tuple(arg) if m.hierarchical else arg[0])
+            chunks.append(iq)
+        iq = channel.apply_cfo(torch.cat(chunks, dim=-1), STREAM_CFO,
+                               m.fft_len)
+        return pks, n_pk, iq[0].cpu().numpy()
+
+    def feed(srx, stream):
+        reports = []
+        for pos in range(0, len(stream), STREAM_CHUNK):
+            reports += srx.feed(stream[pos:pos + STREAM_CHUNK])
+        return reports + srx.flush()
+
+    (pk,), (n_pk,), clean = tx_stream(mode, STREAM_BLOCKS, 41)
+    stream = clean[STREAM_DELAY:]
+
+    # the streaming drive: pipeline=4, launches counted alone; nothing in
+    # a locked dispatch may wait for the device (PyTorch's sync debug
+    # mode raises on any op that would)
+    srx = StreamingReceiver(mode, dev, pipeline=4)
+    dispatch = srx._dispatch
+
+    def dispatch_without_syncs():
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+
+    srx._dispatch = dispatch_without_syncs
+    reports, launches = counted(lambda: feed(srx, stream))
+    n = _stream_check(reports, pk, n_pk, srx.block_samples, STREAM_DELAY,
+                      0.0, "pipeline=4")
+    require(launches["viterbi_punct"] == len(reports),
+            f"the streaming drive launched K1 {launches['viterbi_punct']} "
+            f"times for {len(reports)} blocks")
+    print(f"[stream] {mode.transmission} {mode.constellation} "
+          f"{mode.code_rate}, {STREAM_BLOCKS} one-frame blocks, delay "
+          f"{STREAM_DELAY}, CFO {STREAM_CFO}, chunks of {STREAM_CHUNK}, "
+          f"pipeline=4: locked at {reports[0].stream_offset} (cfo_int "
+          f"{int(reports[0].info['cfo_int'])}, cfo_frac "
+          f"{float(reports[0].info['cfo_frac']):.5f}), {len(reports)} "
+          f"blocks, no re-acquisition, rs_uncorrectable 0 after lock, TS "
+          f"byte-exact over {n} packets, no device sync in a locked "
+          f"dispatch, launches {launches}", flush=True)
+
+    # the sample-clock loop: held at STREAM_PPM (pipeline=0), its limits read
+    for ppm, pipeline, hold in ((STREAM_PPM, 0, True),
+                                (STREAM_PPM, 4, False),
+                                (READ_PPM, 0, False)):
+        s = channel.resample_ppm(clean, ppm)[STREAM_DELAY:]
+        srx = StreamingReceiver(mode, dev, pipeline=pipeline)
+        reps = feed(srx, s)
+        adj = sum(r.timing_adj for r in reps)
+        drift = len(s) * ppm * 1e-6
+        bad = [int(r.rs_uncorrectable.sum()) for r in reps[1:]]
+        reacq = sum(bool(r.reacquired) for r in reps[1:])
+        taus = [r.timing_tau for r in reps]
+        print(f"[stream] {ppm:+g} ppm, pipeline={pipeline} "
+              f"({'held' if hold else 'read'}): {len(reps)} blocks, "
+              f"timing_adj total {adj} for a drift of {drift:.1f} samples, "
+              f"timing_tau {min(taus):.2f}..{max(taus):.2f}, "
+              f"re-acquisitions {reacq}, uncorrectable packets after lock "
+              f"{sum(bad)} of {sum(len(r.rs_uncorrectable) for r in reps[1:])}"
+              f" (per block {bad})", flush=True)
+        if hold:
+            _stream_check(reps, pk, n_pk, srx.block_samples, STREAM_DELAY,
+                          ppm, f"{ppm} ppm")
+            require(adj > 0 and abs(adj - drift) < 0.25 * drift + 6,
+                    f"{ppm} ppm: timing_adj total {adj}, drift {drift}")
+
+    # checkpoint: saved mid-stream, restored into a new receiver
+    half = len(stream) // 2
+    a = StreamingReceiver(mode, dev, pipeline=4)
+    got = [r.packets for r in feed(a, stream[:half])]
+    with tempfile.TemporaryDirectory() as td:
+        path = f"{td}/rx.npz"
+        a.save(path)
+        del a
+        b = StreamingReceiver(mode, dev, pipeline=4)
+        b.restore(path)
+        got += [r.packets for r in feed(b, stream[half:])]
+    require(len(got) == len(reports) and all(
+        np.array_equal(g, r.packets) for g, r in zip(got, reports)),
+        "the resumed stream differs from the uninterrupted one")
+    print(f"[stream] checkpoint at sample {half} (pipeline=4): "
+          f"{len(got)} blocks byte-identical to the uninterrupted run",
+          flush=True)
+
+    # mode detection: told only the transmission mode
+    for m, (pks, n_pks, s) in ((mode, ([pk], [n_pk], stream)),
+                               (hier, tx_stream(hier, 8, 43))):
+        if m is hier:
+            s = s[STREAM_DELAY:]
+        arx = auto.AutoStreamingReceiver(m.transmission, dev)
+        reps = feed(arx, s)
+        got_m = arx.detected_mode
+        fields = ("transmission", "constellation", "code_rate", "guard",
+                  "alpha") + (("code_rate_lp",) if m.hierarchical else ())
+        require(all(getattr(got_m, f) == getattr(m, f) for f in fields),
+                f"detected {got_m}, sent {m}")
+        n = _stream_check(reps, pks[0], n_pks[0], arx.block_samples,
+                          STREAM_DELAY, 0.0, f"auto {m}")
+        if m.hierarchical:
+            lp = np.concatenate([r.packets_lp for r in reps])
+            k0 = round((reps[0].stream_offset + STREAM_DELAY
+                        + syncop.DEFAULT_BACKOFF) / arx.block_samples)
+            want = pks[1][k0 * n_pks[1]:]
+            n_lp = min(len(lp) - DELAY_PACKETS, len(want))
+            require(np.array_equal(lp[DELAY_PACKETS:][:n_lp], want[:n_lp])
+                    and not any(r.lp_rs_uncorrectable.any()
+                                for r in reps[1:]),
+                    "auto alpha=2: the LP stream differs")
+        print(f"[stream] auto-detected {got_m} (guard scores "
+              f"{ {k: round(v, 4) for k, v in arx.detect_info['guard_scores'].items()} }"
+              f"): TS byte-exact over {n} packets"
+              f"{', LP too' if m.hierarchical else ''}", flush=True)
+
+    # the bench's tracked variant, its hard checks, one profiled block
+    tracked, tracked_launches = counted(
+        lambda: bench.tracked_bench(mode, dev, frames=frames))
+    print(f"[stream] tracked: {json.dumps(tracked)} ({card})", flush=True)
+    require(tracked_launches["viterbi_punct"] > 0
+            and tracked_launches["byte_coder"] > 0,
+            f"the tracked variant's launches: {tracked_launches}")
+    prof = profile_slice._stream(dev, card, frames, mode)
+    print(f"[time] tracked block ({frames} frames, pipeline=4), profiled "
+          f"({profile_slice.PROFILED_STEPS} blocks, one trace): device busy "
+          f"{prof['busy']:.4f} ms, wall {prof['wall']:.4f} ms a block, idle "
+          f"share {prof['idle']:.4f} ({card})", flush=True)
+
+    # the apps, through files
+    n_app = 4
+    with tempfile.TemporaryDirectory() as td:
+        app_pk = make_ts_packets(n_pk * n_app, seed=44)
+        tsio.write_ts_file(f"{td}/in.ts", app_pk)
+        flags = ["-t", mode.transmission, "-c", mode.constellation, "-r",
+                 mode.code_rate, "-g", mode.guard, *app_args]
+        t0 = time.perf_counter()
+        for app, io in (("tx", ["--in", f"{td}/in.ts", "--out",
+                                f"{td}/air.iq"]),
+                        ("rx", ["--in", f"{td}/air.iq", "--out",
+                                f"{td}/out.ts"])):
+            proc = subprocess.run(
+                [sys.executable, "-m", f"dvbt_tpu_torch.apps.{app}", *io,
+                 *flags], cwd=ROOT, capture_output=True, text=True,
+                timeout=300)
+            require(proc.returncode == 0, f"apps.{app} exited "
+                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+            print(f"[stream] apps.{app}: {proc.stderr.strip()}", flush=True)
+        got = tsio.read_ts_file(f"{td}/out.ts")
+        b0 = (len(app_pk) - len(got) - DELAY_PACKETS) // n_pk
+        require(len(got) > n_pk and np.array_equal(
+            got, app_pk[b0 * n_pk:][:len(got)]),
+            "apps.tx -> apps.rx: the TS differs from the input")
+    print(f"[stream] apps.tx -> apps.rx through files: {len(got)} packets "
+          f"equal to the input in {time.perf_counter() - t0:.1f} s; the "
+          f"streaming phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"streaming": launches, "tracked": tracked_launches}
+
+
 def parallel_phase(card: str) -> tuple[dict, dict]:
     """Phase 7: 4 ranks on the one card (ring_bench.rank_main: K4 against
     its plain version and lone calls that must time out, on both routes,
@@ -675,6 +931,10 @@ def main() -> None:
         nb = h2k.stream_packets_per_block(part) * 204
         k2_cases[f"2K alpha=2 {part.upper()} rate {r}, 1 and 8 x {nb} "
                  "bytes"] = max(k2_blocks(m, nb, r) for m in (1, 8))
+    # the streaming receiver's tracked block: 1 mux x 8 frames
+    tracked_bytes = mode.packets_per_block * TRACKED_FRAMES * 204
+    k2_cases[f"tracked block, 1 x {tracked_bytes} bytes ({TRACKED_FRAMES} "
+             "frames)"] = k2_blocks(1, tracked_bytes, rate)
     k2_err = max(k2_cases.values())
     require(k2_err == 0, f"K2 differs from its plain version or the numpy "
                          f"reference: {k2_cases}")
@@ -761,6 +1021,11 @@ def main() -> None:
                 max(k1_blocks(m, nb, r, vops.DEFAULT_BODY,
                               vops.effective_overlap(r), "graded")
                     for m in (1, 8))
+    for kind in ("hard", "graded"):
+        k1_cases[f"{kind}, tracked block, 1 mux x {tracked_bytes * 8} bits "
+                 f"({TRACKED_FRAMES} frames)"] = k1_blocks(
+            1, tracked_bytes * 8, rate, vops.DEFAULT_BODY,
+            vops.effective_overlap(rate), kind)
     rx_err, graded = k1_on_receiver_metrics(dev)
     k1_cases["the soft receiver's CSI-weighted metrics, 8K P1 20 dB, 2 "
              f"blocks ({graded:.1%} graded)"] = rx_err
@@ -985,6 +1250,9 @@ def main() -> None:
     ber_launches = ber_phase(card, dev)
     hier_launches = hierarchical_phase(card, dev)
 
+    # --- 5e. the streaming receiver, its apps and the tracked bench -------
+    stream_launches = streaming_phase(card, dev)
+
     # --- 6. timings ------------------------------------------------------
     for _ in range(2):
         tst, iq = tx(tst, packets[0])
@@ -1085,7 +1353,8 @@ def main() -> None:
     by_path = {"slice": {"viterbi_punct": launches["viterbi"],
                          "byte_coder": launches["coder"]},
                "block_path": blk_launches, "ber": ber_launches,
-               **hier_launches, **dryrun_launches, "bench": bench_launches}
+               **hier_launches, **stream_launches, **dryrun_launches,
+               "bench": bench_launches}
 
     def entry(name, key, source, replaces, launches_, err, cases=None):
         e = {"name": name, "route": "cuda", "source": source,

@@ -31,6 +31,7 @@ from ..models import channel, rx as rxm, tx as txm
 from ..ops.outer_interleaver import DELAY_PACKETS
 from ..utils.streams import join, split
 from . import common
+from .device import add_device_arg, device_from_args
 
 
 @functools.lru_cache(maxsize=8)
@@ -119,17 +120,14 @@ def main(argv=None) -> int:
                         "metrics into the soft Viterbi (~2 dB gain)")
     p.add_argument("--profile", choices=["none", "F1", "P1"], default="none",
                    help="EN300744 Annex B propagation profile before AWGN")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda (the card, default) or cpu")
+    add_device_arg(p)
     a = p.parse_args(argv)
-    if a.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("ber_sweep: no CUDA device (pass --device cpu to "
-                         "run on the CPU)")
+    device = device_from_args(a, "ber_sweep")
     mode = common.mode_from_args(a)
     profile = None if a.profile == "none" else a.profile
     for snr in [float(s) for s in a.snrs.split(",")]:
         print(json.dumps({**run_point(mode, snr, a.blocks, a.seed, a.demap,
-                                      profile, a.device),
+                                      profile, device),
                           "demap": a.demap, "profile": a.profile}),
               flush=True)
     return 0

@@ -22,6 +22,7 @@ import torch
 
 from .. import tables
 from ..mode import SYMBOLS_PER_FRAME, DvbtMode
+from ..utils.cplx import cis
 
 from . import symbol_interleaver as si
 
@@ -183,6 +184,28 @@ def init_time_channel_state(mode: DvbtMode, n_mux: int, device):
     n_sp = _frame_tables(mode)["sp_idx"].shape[1]
     return (torch.zeros(n_mux, 3, n_sp, dtype=torch.complex64, device=device),
             torch.zeros(n_mux, dtype=torch.bool, device=device))
+
+
+def make_chan_tail_retimer(mode: DvbtMode, device):
+    """f(tail, adj) -> tail' compensating a sample-clock timing step.
+
+    Consuming ``adj`` extra samples before a block moves the FFT window
+    later, so the channel's delay drops by adj and every later H(k) picks
+    up the linear phase e^{+j 2 pi f(k) adj / N}, f(k) = k - kmax/2 the
+    signed subcarrier frequency (exact for integer adj).  The carried
+    pilot history gets the same phase so that it stays coherent with the
+    next block's pilots.  tail: complex64 (n_mux, 3, n_sp); adj: integer
+    (n_mux,).  adj == 0 multiplies by exactly 1+0j."""
+    t = _frame_tables(mode)
+    f = torch.as_tensor(t["sp_idx"][1:4].astype(np.float32)
+                        - np.float32(mode.kmax // 2), device=device)
+    two_pi_over_n = float(np.float32(2.0 * np.pi / mode.fft_len))
+
+    def retime(tail: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+        ang = two_pi_over_n * adj.to(torch.float32)
+        return (tail * cis(ang[:, None, None] * f)).to(torch.complex64)
+
+    return retime
 
 
 def make_cell_deinterleaver(mode: DvbtMode, device):

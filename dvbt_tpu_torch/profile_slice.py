@@ -4,6 +4,7 @@
     python3 -m dvbt_tpu_torch.profile_slice --demap soft   # its soft RX
     python3 -m dvbt_tpu_torch.profile_slice --hier     # hierarchical
     python3 -m dvbt_tpu_torch.profile_slice --blocks   # the block path
+    python3 -m dvbt_tpu_torch.profile_slice --stream   # tracked blocks
 
 The flagship slice: MODE_8K_UK, 8 muxes x 4 frames per step, TX then
 symbol-aligned RX, whose demap is hard unless ``--demap soft`` asks for
@@ -12,11 +13,14 @@ hierarchical configuration (parallel/ring_bench.HIER_8K: 8K 64-QAM
 alpha=2, HP 2/3 + LP 3/4).  With ``--blocks``, the block-level receive path
 (models/flowgraph.py) at the same mode and size: 8 raw captures (the
 transmitter's stream with a per-mux delay and CFO) from the synchronizer
-to the descrambler.  Prints:
+to the descrambler.  With ``--stream``, the bench's tracked variant: one
+mux of MODE_8K_UK, 8 frames a block, at a carrier offset of 0.31
+subcarrier, fed block by block to a locked StreamingReceiver
+(``pipeline=4``, ``metrics="min"``), ring, host copies and all.  Prints:
 
 - host-clock ms per step, unprofiled (TX, RX and TX+RX for the slice; one
-  pass over the captures for the block path), and the peak device memory
-  of one step;
+  pass over the captures for the block path; one block fed, for the
+  stream), and the peak device memory of one step;
 - from ONE torch.profiler trace of 5 steps: device ms per step inside each
   stage's profiler range, the device busy time (union of kernel, memcpy
   and memset intervals), the wall time of the profiled steps, the idle
@@ -25,7 +29,8 @@ to the descrambler.  Prints:
   an unprofiled step.
 
 The Chrome trace is kept at ``build/dvbt_tpu_torch/slice_trace.json``
-(``blocks_trace.json`` for the block path) beside the package.
+(``blocks_trace.json`` for the block path, ``stream_trace.json`` for the
+stream) beside the package.
 """
 
 from __future__ import annotations
@@ -39,10 +44,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import MODE_8K_UK, make_ts_packets
+from . import MODE_8K_UK, bench, make_ts_packets
 from .utils.streams import join, split
 from .kernels import _build
 from .models import flowgraph
+from .models import loopback
 from .models import rx as rxm
 from .models import tx as txm
 from .ops import sync as syncop
@@ -194,6 +200,41 @@ def _blocks(dev, card: str) -> None:
     _profile(step, card, _build.BUILD_DIR / "blocks_trace.json")
 
 
+def _stream(dev, card: str, frames: int = 8, mode=MODE_8K_UK) -> dict:
+    """Profiles tracked blocks (bench.tracked_stream: one mux, ``frames``
+    times the mode's frames per block, CFO 0.31) fed one at a time to a
+    locked StreamingReceiver with pipeline=4 and metrics="min"; returns
+    _profile's reading per block."""
+    n_frames = mode.frames_per_block * frames
+    n_warm, n_timed = 4, 8
+    _, _, blocks = bench.tracked_stream(
+        mode, dev, n_frames, n_warm + n_timed + PROFILED_STEPS)
+    srx = loopback.StreamingReceiver(mode, dev, n_frames, pipeline=4,
+                                     metrics="min")
+    for b in blocks[:n_warm]:
+        srx.feed(b)
+    srx.flush()
+    if not srx.locked:
+        raise SystemExit("profile_slice: the streaming receiver did not lock")
+    it = iter(blocks[n_warm:])
+
+    def step():
+        srx.feed(next(it))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        step()
+    srx.flush()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    print(f"unprofiled ms per tracked block ({n_timed} blocks fed with "
+          f"pipeline=4, then the flush): {ms:.3f} ({srx.block_samples} "
+          f"samples, {frames} frames of {mode.transmission} "
+          f"{mode.constellation} {mode.code_rate}) ({card})", flush=True)
+    return _profile(step, card, _build.BUILD_DIR / "stream_trace.json")
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks", action="store_true",
@@ -202,6 +243,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="the slice receiver's demap")
     ap.add_argument("--hier", action="store_true",
                     help="the slice at the hierarchical configuration")
+    ap.add_argument("--stream", action="store_true",
+                    help="tracked blocks through the StreamingReceiver")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
@@ -213,6 +256,8 @@ def main(argv: list[str] | None = None) -> None:
     dev = torch.device("cuda", 0)
     if args.blocks:
         _blocks(dev, card)
+    elif args.stream:
+        _stream(dev, card)
     else:
         _slice(dev, card, args.demap, args.hier)
 

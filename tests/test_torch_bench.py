@@ -187,3 +187,51 @@ def test_module_without_cuda_exits_nonzero_and_prints_no_line():
     assert proc.returncode != 0
     assert proc.stdout.strip() == ""
     assert "cuda" in proc.stderr.lower()
+
+
+def _jax_tracked_keys() -> set:
+    """The keys bench.py's tracked_bench puts in its result."""
+    tree = ast.parse(open(os.path.join(REPO, "bench.py")).read())
+    fn = next(f for f in tree.body if isinstance(f, ast.FunctionDef)
+              and f.name == "tracked_bench")
+    keys = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and node.value.startswith("tracked_"):
+            keys.add(node.value)
+    assert {"tracked_msps", "tracked_device_msps"} <= keys
+    return keys
+
+
+def test_tracked_bench_locks_and_reads_no_rs_failures():
+    """2K QPSK, one frame a block: 5 warm-up blocks (a capture is 3.02
+    blocks, then one locked block), 2 timed blocks, the replay."""
+    out = bench.tracked_bench(MODE_2K_QPSK, "cpu", n_blocks=7, frames=1)
+    assert set(out) == _jax_tracked_keys()
+    assert out["tracked_locked"] is True
+    assert out["tracked_blocks"] == 2
+    assert out["tracked_rs_uncorrectable"] == 0
+    assert out["tracked_device_rs_uncorrectable"] == 0
+    assert out["tracked_device_frozen_loop"] is True
+    for k in ("tracked_msps", "tracked_h2d_mbps", "tracked_device_msps"):
+        assert out[k] > 0, k
+
+
+def test_tracked_bench_fails_on_an_uncorrectable_packet(monkeypatch):
+    make = reed_solomon.make_rs_decoder
+
+    def make_marking(device):
+        decode = make(device)
+
+        def marking(cw):
+            msg, corr, bad = decode(cw)
+            bad = bad.clone()
+            bad[0, 20] = True
+            return msg, corr, bad
+        return marking
+
+    monkeypatch.setattr(reed_solomon, "make_rs_decoder", make_marking)
+    with pytest.raises(bench.BenchFailure,
+                       match=r"^tracked_rs_uncorrectable is 2; "
+                             r"tracked_device_rs_uncorrectable is [12]$"):
+        bench.tracked_bench(MODE_2K_QPSK, "cpu", n_blocks=7, frames=1)

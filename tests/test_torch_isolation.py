@@ -1,8 +1,11 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
 package, and its own copies of the mode object, the EN 300 744 tables,
-the TS helpers, the apps' CLI plumbing, the Annex B echo tables and the
-host resampler equal the JAX package's originals."""
+the TS helpers, the apps' CLI plumbing, the Annex B echo tables, the
+host resampler, the sample sources, the SoapySDR binding (but for its
+repaired read), the native ring buffer's source and the TPS field maps
+equal the JAX package's originals."""
 
+import ast
 import dataclasses
 import inspect
 import itertools
@@ -17,11 +20,13 @@ from dvbt_tpu import mode as j_mode
 from dvbt_tpu import tables as j_tables
 from dvbt_tpu.apps import common as j_common
 from dvbt_tpu.io import ts as j_ts
+from dvbt_tpu.models import auto as j_auto
 from dvbt_tpu.models import channel as j_channel
 from dvbt_tpu_torch import mode as t_mode
 from dvbt_tpu_torch import tables as t_tables
 from dvbt_tpu_torch.apps import common as t_common
 from dvbt_tpu_torch.io import ts as t_ts
+from dvbt_tpu_torch.models import auto as t_auto
 from dvbt_tpu_torch.models import channel as t_channel
 from dvbt_tpu_torch.utils.state import mode_from_jax as port_mode
 
@@ -53,6 +58,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             ("multihost", "ring", "sharding", "time_sharding")} <= loaded
     assert {"dvbt_tpu_torch.apps.ber_sweep", "dvbt_tpu_torch.apps.common",
             "dvbt_tpu_torch.models.channel"} <= loaded
+    assert {f"dvbt_tpu_torch.{m}" for m in (
+        "native", "models.loopback", "models.auto", "utils.checkpoint",
+        "utils.sanitize", "io.source", "io.soapy", "apps.tx", "apps.rx",
+        "apps.loopback", "apps.device")} <= loaded
 
 
 # the mode grid of tests/test_mode_grid.py in both transmission modes, and
@@ -229,3 +238,59 @@ def test_annex_b_tables_equal_the_originals(name):
 def test_resample_ppm_is_a_whole_copy():
     assert inspect.getsource(t_channel.resample_ppm) == \
         inspect.getsource(j_channel.resample_ppm)
+
+
+def _code(path, drop=()) -> str:
+    """The module's AST without docstrings, and without the functions
+    named in ``drop`` ("Class.method")."""
+    tree = ast.parse(open(os.path.join(REPO, path)).read())
+
+    def strip(body, prefix):
+        out = []
+        for node in body:
+            if (isinstance(node, ast.Expr)
+                    and isinstance(node.value, ast.Constant)
+                    and isinstance(node.value.value, str)):
+                continue                              # a docstring
+            name = getattr(node, "name", None)
+            if name is not None and f"{prefix}{name}" in drop:
+                continue
+            if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+                node.body = strip(node.body, f"{name}.")
+            out.append(node)
+        return out
+
+    tree.body = strip(tree.body, "")
+    return ast.dump(tree)
+
+
+def test_io_source_is_a_whole_copy():
+    assert _code("dvbt_tpu_torch/io/source.py") == \
+        _code("dvbt_tpu/io/source.py")
+
+
+def test_io_soapy_is_a_whole_copy_but_the_repaired_read():
+    drop = {"_CtypesDevice.read"}
+    assert _code("dvbt_tpu_torch/io/soapy.py", drop) == \
+        _code("dvbt_tpu/io/soapy.py", drop)
+    assert _code("dvbt_tpu_torch/io/soapy.py") != \
+        _code("dvbt_tpu/io/soapy.py")
+
+
+def test_native_ring_source_is_byte_equal():
+    with open(os.path.join(REPO, "dvbt_tpu/native/ringbuffer.cc"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "dvbt_tpu_torch/native/ringbuffer.cc"),
+              "rb") as f:
+        assert f.read() == want
+
+
+@pytest.mark.parametrize("name", ["_TPS_CONSTELLATION", "_TPS_ALPHA",
+                                  "_TPS_RATE", "_TPS_GUARD", "_TPS_MODE"])
+def test_tps_field_maps_equal_the_originals(name):
+    assert getattr(t_auto, name) == getattr(j_auto, name)
+
+
+def test_parse_tps_is_a_copy():
+    assert inspect.getsource(t_auto._parse_tps) == \
+        inspect.getsource(j_auto._parse_tps)
