@@ -52,9 +52,16 @@ one-frame blocks, equal to the single-process streaming chain; the K4 halo
 path equal to the send/recv one; the same three stages with the soft
 receiver and with the hierarchical configuration, three halos a step,
 each on both of K4's routes), and time K4 and the sharded step with
-either halo.  Last, the flagship bench (dvbt_tpu_torch.bench): its step
+either halo.  Then the flagship bench (dvbt_tpu_torch.bench): its step
 captured into one CUDA graph against the eager step over 4 carried steps,
-byte for byte, and a 2 s bench run whose line must pass its gates.
+byte for byte, and a 2 s bench run whose line must pass its gates.  Last,
+the validation tools (dvbt_tpu_torch.tools): the 25 modes of
+mode_grid_hw.GRID (2K constellation x rate at GI 1/4, a guard sweep, 8K
+spot modes, 2K alpha=4 and 8K alpha=2), 2 carried blocks each at 1 mux,
+byte-exact with no RS correction, K1's and K2's calls there replayed
+through the kernels and their plain versions; and ber_hw's four BER
+points (2K and 8K AWGN hard, 2K F1 hard, 2K P1 soft) over 8 seeds under
+ber_curves' limit rule.
 Every phase raises on failure (nonzero exit).  The last line is one JSON
 object {"ok": true, "device": {...}}; the line before it is the card's
 name and power limit from nvidia-smi, and before that a JSON line with
@@ -435,6 +442,101 @@ def hierarchical_phase(card: str, dev) -> dict:
             f"the hard-demap fault at 2K alpha=2 6 dB falls inside the "
             f"tolerance: ratio {ratio}")
     return {"hierarchical_8k": launches, "hierarchical_2k_ber": launches2}
+
+
+def validation_phase(card: str, dev) -> tuple[dict, dict, dict]:
+    """The on-card validation tools: tools.mode_grid_hw.GRID in full (25
+    modes x 2 carried blocks, 1 mux), each byte-exact with no RS
+    correction, K1's and K2's calls recorded and replayed through the
+    kernels and their plain versions (every shape the grid runs: 2K and 8K
+    blocks, rate 7/8 at GI 1/16, the alpha=4 LP stream); then tools.ber_hw's
+    four points over BER_SEEDS under tools.ber_curves' limit rule.
+    Returns the launches on each, and K1's and K2's parity cases."""
+    import torch
+
+    from dvbt_tpu_torch.kernels import coder as kcoder
+    from dvbt_tpu_torch.kernels import viterbi as kvit
+    from dvbt_tpu_torch.tools import ber_curves, ber_hw, mode_grid_hw
+
+    t_phase = time.perf_counter()
+    k1, k2 = kvit.viterbi_punct, kcoder.byte_coder
+    k1_calls, k2_calls = [], []
+
+    def record_k1(coded, tail, n_bits, rate, body):
+        k1_calls.append((coded.clone(), tail.clone(), n_bits, rate, body))
+        return k1(coded, tail, n_bits, rate, body)
+
+    def record_k2(state6, stream, rate):
+        k2_calls.append((state6.clone(), stream.clone(), rate))
+        return k2(state6, stream, rate)
+
+    def grid():
+        return {name: mode_grid_hw.run_mode(mode, dev)
+                for name, mode in mode_grid_hw.GRID}
+
+    kvit.viterbi_punct, kcoder.byte_coder = record_k1, record_k2
+    try:
+        results, grid_launches = counted(grid)
+    finally:
+        kvit.viterbi_punct, kcoder.byte_coder = k1, k2
+    t_grid = time.perf_counter() - t_phase
+    for name, r in results.items():
+        print(f"[grid] {name:18s} {json.dumps(r)} ({card})", flush=True)
+    green = [name for name, r in results.items()
+             if r["byte_exact"] and r["rs_corrected"] == 0]
+    require(len(green) == len(mode_grid_hw.GRID) == 25,
+            f"mode grid: {len(green)}/25 green: {results}")
+    n = sum(2 * len(m.streams) for _, m in mode_grid_hw.GRID)
+    require(grid_launches == {"viterbi_punct": n, "byte_coder": n},
+            f"the mode grid did not launch K1 and K2 once a block and "
+            f"stream: {grid_launches}")
+    # every recorded call through the kernel, as the grid made it, and its
+    # plain version: the calls of one shape stacked on the mux axis into
+    # one plain call (its rows are independent; each plain call is a few
+    # thousand small launches)
+    k1_cases, k2_cases = {}, {}
+    shapes = {}
+    for coded, tail, n_bits, rate, body in k1_calls:
+        shapes.setdefault((n_bits, rate, body), []).append((coded, tail))
+    for (n_bits, rate, body), calls in shapes.items():
+        got = torch.cat([k1(c, t, n_bits, rate, body) for c, t in calls])
+        want = kvit.viterbi_punct_plain(
+            torch.cat([c for c, _ in calls]),
+            torch.cat([t for _, t in calls]), n_bits, rate, body)
+        key = f"mode grid, rate {rate}, {n_bits} bits"
+        k1_cases[key] = int((got.int() - want.int()).abs().max())
+        require(torch.equal(got, want), f"K1 at the grid's {key} differs "
+                                        "from its plain version")
+    for state6, stream, rate in k2_calls:
+        st_k, got = k2(state6, stream, rate)
+        st_p, want = kcoder.byte_coder_plain(state6, stream, rate)
+        key = f"mode grid, rate {rate}, {stream.shape[-1]} bytes"
+        k2_cases[key] = max(k2_cases.get(key, 0),
+                            int((got.int() - want.int()).abs().max()))
+        require(torch.equal(got, want) and torch.equal(st_k, st_p),
+                f"K2 at the grid's {key} differs from its plain version")
+    print(f"[grid] {len(green)}/25 modes byte-exact with rs_corrected 0 in "
+          f"{t_grid:.2f} s; launches {grid_launches}; K1 exact on "
+          f"{len(k1_calls)} recorded calls at {len(shapes)} shapes, K2 on "
+          f"{len(k2_calls)} at {len(k2_cases)} ({card})", flush=True)
+
+    t0 = time.perf_counter()
+    lines, ber_launches = counted(lambda: ber_hw.run(dev, BER_SEEDS))
+    for line in lines:
+        print(f"[ber_hw] {json.dumps(line)}", flush=True)
+        require(line["device"] == "gpu" and line["pass"],
+                f"ber_hw {line['curve']} {line['snr_db']} dB misses "
+                f"ber_curves' rule over seeds {BER_SEEDS}: {line}")
+    n = sum(p[2] for p in ber_hw.POINTS) * len(BER_SEEDS)
+    require(ber_launches == {"viterbi_punct": n, "byte_coder": n},
+            f"ber_hw did not launch K1 and K2 once a block: {ber_launches}")
+    print(f"[ber_hw] {len(lines)} points within ber_curves' rule "
+          f"(spread_k {ber_curves.SPREAD_K}, floor {ber_curves.REL_FLOOR}) "
+          f"over seeds {BER_SEEDS} in {time.perf_counter() - t0:.2f} s; "
+          f"launches {ber_launches}; the validation phase took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return ({"mode_grid": grid_launches, "ber_hw": ber_launches},
+            k1_cases, k2_cases)
 
 
 def _stream_check(reports, packets, n_pk, block_samples, delay, ppm,
@@ -1320,6 +1422,14 @@ def main() -> None:
     # --- 8. the flagship bench: the CUDA graph step ------------------------
     per_replay, bench_launches = bench_phase(card, dev)
 
+    # --- 9. the validation tools: the 25-mode grid and ber_hw's points -----
+    # after every timing: with this phase before them, the profiler once
+    # saw only 126 of K2's 200 launches in coder_bench
+    valid_launches, k1_grid, k2_grid = validation_phase(card, dev)
+    k1_cases.update(k1_grid)
+    k2_cases.update(k2_grid)
+    k1_err, k2_err = max(k1_cases.values()), max(k2_cases.values())
+
     imported = sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "dvbt_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")
@@ -1353,8 +1463,8 @@ def main() -> None:
     by_path = {"slice": {"viterbi_punct": launches["viterbi"],
                          "byte_coder": launches["coder"]},
                "block_path": blk_launches, "ber": ber_launches,
-               **hier_launches, **stream_launches, **dryrun_launches,
-               "bench": bench_launches}
+               **hier_launches, **stream_launches, **valid_launches,
+               **dryrun_launches, "bench": bench_launches}
 
     def entry(name, key, source, replaces, launches_, err, cases=None):
         e = {"name": name, "route": "cuda", "source": source,

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import argparse
+import subprocess
 
 import torch
 
@@ -19,3 +20,16 @@ def device_from_args(a: argparse.Namespace, prog: str) -> torch.device:
         raise SystemExit(f"{prog}: no CUDA device (pass --device cpu to run "
                          "on the CPU)")
     return torch.device(a.device)
+
+
+def card(device: torch.device) -> str:
+    """What a result ran on: the card's name and power limit as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    gives them (the first card's), or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]

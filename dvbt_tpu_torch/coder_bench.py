@@ -17,12 +17,12 @@ package that has them.  ``chip_smoke.py`` takes its K2 timing from here.
 from __future__ import annotations
 
 import json
-import subprocess
 
 import numpy as np
 import torch
 
 from . import MODE_8K_UK
+from .apps.device import card as device_card
 from .kernels import coder as kcoder
 from .viterbi_bench import event_ms
 
@@ -93,10 +93,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("coder_bench: no CUDA device")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = device_card(dev)
     res = {"flagship": time_shape(8, FLAG_BYTES, dev),
            "frame": time_shape(1, FRAME_BYTES, dev),
            "card": card}

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -54,6 +53,7 @@ from .models import tx as txm
 from .ops import sync as syncop
 from .parallel.ring_bench import HIER_8K
 from .utils.cplx import cis
+from .apps.device import card as device_card
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PROFILED_STEPS = 5
@@ -248,12 +248,8 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    card = device_card(dev)
     if args.blocks:
         _blocks(dev, card)
     elif args.stream:

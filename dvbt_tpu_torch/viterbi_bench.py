@@ -18,11 +18,11 @@ timer and inputs from here.
 from __future__ import annotations
 
 import dataclasses
-import subprocess
 
 import torch
 
 from . import MODE_8K_UK
+from .apps.device import card as device_card
 from .kernels import coder as kcoder
 from .kernels import viterbi as kvit
 from .ops import inner_coder
@@ -122,12 +122,8 @@ def halo_inputs(dev, seed: int = 6) -> Inputs:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("viterbi_bench: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    card = device_card(dev)
     main_in, halo_in = main_path_inputs(dev), halo_inputs(dev)
     runs = {"K1": (main_in.k1, 10), "K3": (main_in.k3, 10),
             "K3 halo": (halo_in.k3, 200)}

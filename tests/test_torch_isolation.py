@@ -3,10 +3,12 @@ package, and its own copies of the mode object, the EN 300 744 tables,
 the TS helpers, the apps' CLI plumbing, the Annex B echo tables, the
 host resampler, the sample sources, the SoapySDR binding (but for its
 repaired read), the native ring buffer's source and the TPS field maps
-equal the JAX package's originals."""
+equal the JAX package's originals, and the validation tools' mode grid,
+BER points and BER curves equal the lists of the repo's tools/ scripts."""
 
 import ast
 import dataclasses
+import importlib.util
 import inspect
 import itertools
 import os
@@ -62,6 +64,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "native", "models.loopback", "models.auto", "utils.checkpoint",
         "utils.sanitize", "io.source", "io.soapy", "apps.tx", "apps.rx",
         "apps.loopback", "apps.device")} <= loaded
+    assert {f"dvbt_tpu_torch.tools.{m}" for m in (
+        "mode_grid_hw", "ber_hw", "ber_curves")} <= loaded
 
 
 # the mode grid of tests/test_mode_grid.py in both transmission modes, and
@@ -294,3 +298,71 @@ def test_tps_field_maps_equal_the_originals(name):
 def test_parse_tps_is_a_copy():
     assert inspect.getsource(t_auto._parse_tps) == \
         inspect.getsource(j_auto._parse_tps)
+
+
+def jax_tool(name: str):
+    """tools/<name>.py (no package: loaded by path), with the environment
+    it sets restored."""
+    env = dict(os.environ)
+    spec = importlib.util.spec_from_file_location(
+        f"jax_tools_{name}", os.path.join(REPO, "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
+    return module
+
+
+def _jax_mode_grid() -> list:
+    """The grid tools/mode_grid_hw.py builds inside main(): its statements
+    that assign or append to ``grid``, read with ast and run."""
+    tree = ast.parse(open(os.path.join(REPO, "tools/mode_grid_hw.py")).read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+
+    def builds(stmt):
+        return any((isinstance(n, ast.Name) and n.id == "grid"
+                    and isinstance(n.ctx, ast.Store))
+                   or (isinstance(n, ast.Attribute) and n.attr == "append"
+                       and getattr(n.value, "id", None) == "grid")
+                   for n in ast.walk(stmt))
+
+    body = ast.Module(body=[n for n in main.body if builds(n)],
+                      type_ignores=[])
+    ns = {"DvbtMode": j_mode.DvbtMode}
+    exec(compile(body, "tools/mode_grid_hw.py", "exec"), ns)
+    return ns["grid"]
+
+
+def test_mode_grid_equals_the_jax_tools():
+    from dvbt_tpu_torch.tools import mode_grid_hw
+
+    want = _jax_mode_grid()
+    assert len(want) == 25
+    assert [(n, dataclasses.asdict(m)) for n, m in mode_grid_hw.GRID] == \
+        [(n, dataclasses.asdict(m)) for n, m in want]
+
+
+def test_ber_hw_points_equal_the_jax_tools():
+    from dvbt_tpu_torch.tools import ber_hw
+
+    assert ber_hw.POINTS == jax_tool("ber_hw").POINTS
+
+
+def _curves(curves) -> list:
+    return [(stem, dataclasses.asdict(mode), *rest)
+            for stem, mode, *rest in curves]
+
+
+@pytest.mark.parametrize("name,part", [("ber_r4", slice(4, 17)),
+                                       ("ber_r5", slice(17, 20))])
+def test_ber_curves_equal_the_jax_tools(name, part):
+    """ber_curves.CURVES: the round-3 curves of docs/BER.md, then
+    tools/ber_r4.py's CURVES, then tools/ber_r5.py's, each entry equal."""
+    from dvbt_tpu_torch.tools import ber_curves
+
+    assert len(ber_curves.CURVES) == 20
+    assert _curves(ber_curves.CURVES[part]) == \
+        _curves(jax_tool(name).CURVES)
