@@ -1,0 +1,6 @@
+"""Settings of the benchmark's own tests (``pytest benchmark/``)."""
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")
