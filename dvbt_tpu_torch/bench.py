@@ -67,6 +67,7 @@ and prints no line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -88,6 +89,7 @@ from .ops import inner_coder
 from .ops import viterbi as vops
 from .ops.outer_interleaver import DELAY_PACKETS
 from .utils import puncture
+from .utils.telemetry import Recorder, stage
 
 MODES = {"8k64qam23": MODE_8K_UK, "2kqpsk12": MODE_2K_QPSK}
 REALTIME_MSPS = 64 / 7          # one mux in real time, Msamples/s
@@ -129,9 +131,18 @@ class GraphStep:
     in first).  ``ts`` and ``rs_uncorrectable`` live in the graph's pool and
     are overwritten by the next replay: clone what is kept.  ``captured``
     holds each kernel's launches in the captured step, which every replay
-    launches again."""
+    launches again.
 
-    def __init__(self, eager, tst: dict, rst: dict, packets: torch.Tensor):
+    The captured body, state copy-back included, runs in the stage
+    ``graph_step``.  With ``telemetry`` (a ``utils.telemetry.Recorder``),
+    the step is captured with the recorder active, so that each stage's
+    CUDA events are nodes of the graph and every replay records them:
+    after a replay and a synchronize, ``telemetry.collect()`` reads that
+    replay's device time of each stage.  Without it the graph holds the
+    step's operations alone."""
+
+    def __init__(self, eager, tst: dict, rst: dict, packets: torch.Tensor,
+                 telemetry: Recorder | None = None):
         dev = packets.device
         # the graph reads the step's tables (the closures' tensors) by
         # address: keep them alive as long as the graph
@@ -149,7 +160,10 @@ class GraphStep:
         before = (kcoder.launches, kvit.launches)
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph):
+            recording = (contextlib.nullcontext() if telemetry is None
+                         else telemetry)
+            with recording, torch.cuda.graph(self.graph), \
+                    stage("graph_step"):
                 new_t, new_r, self._ts, self._bad = eager(tst, rst, packets)
                 new = state_leaves(new_t, new_r)
                 _check_new_state(new, self._static)
@@ -195,20 +209,31 @@ def _check_new_state(new: list, static: list) -> None:
 
 
 def make_step(mode: DvbtMode, device, n_mux: int, n_frames: int,
-              metrics: str = "min", graph: bool = True):
+              metrics: str = "min", graph: bool = True, demap: str = "hard",
+              telemetry: Recorder | None = None):
     """The flagship step: ``step(tst, rst, packets) -> (tst', rst', ts,
     rs_uncorrectable)`` with packets uint8 (n_mux, n_packets, 188), ts
-    alike and rs_uncorrectable bool (n_mux, n_packets).
+    alike and rs_uncorrectable bool (n_mux, n_packets).  The receiver
+    demaps as ``demap`` says ("hard", or "soft": CSI-weighted max-log).
 
     ``graph=True`` captures the step into a CUDA graph (``GraphStep``);
     it needs a CUDA device and raises where capture fails.  ``graph=False``
     returns the eager step.  Either has ``n_packets`` and ``n_samples``
-    (per mux) attributes."""
+    (per mux) attributes.
+
+    With ``telemetry`` (a ``utils.telemetry.Recorder``) every call records
+    one span per stage: the graph's stage events are captured into it, the
+    eager step runs with the recorder active.  After a call, synchronize,
+    then ``telemetry.collect()``; ``telemetry.summary()`` gives each
+    stage's device ms a step (``rs_decode``, ``demap_deinterleave``,
+    ``viterbi_decode``, ...; ``graph_step`` is the whole replay, and its
+    ``self_device_ms`` the device time in no named stage)."""
     device = torch.device(device)
     if graph and device.type != "cuda":
         raise ValueError(f"graph=True needs a CUDA device, not {device}")
     tx, n_pk, n_samp = txm.make_transmitter(mode, device, n_frames)
-    rx, _, _ = rxm.make_receiver(mode, device, n_frames, metrics=metrics)
+    rx, _, _ = rxm.make_receiver(mode, device, n_frames, metrics=metrics,
+                                 demap=demap)
 
     def eager(tst, rst, packets):
         tst, iq = tx(tst, packets)
@@ -219,7 +244,12 @@ def make_step(mode: DvbtMode, device, n_mux: int, n_frames: int,
         step = GraphStep(
             eager, txm.init_tx_state(mode, n_mux, device),
             rxm.init_rx_state(mode, n_mux, device),
-            torch.zeros(n_mux, n_pk, 188, dtype=torch.uint8, device=device))
+            torch.zeros(n_mux, n_pk, 188, dtype=torch.uint8, device=device),
+            telemetry=telemetry)
+    elif telemetry is not None:
+        def step(tst, rst, packets):
+            with telemetry:
+                return eager(tst, rst, packets)
     else:
         step = eager
     step.n_packets, step.n_samples = n_pk, n_samp

@@ -10,8 +10,9 @@ reed_solomon_dec -> energy_descramble.  Every stage comes from
 ``blocks.resolve`` or from a function that a block's notes name in the
 same module; the flagship receiver (models/rx.py) fuses several of these
 stages instead.  Batched over a leading mux axis: each mux's capture has
-its own delay and CFO.  Each stage runs in a profiler range named after
-its block.
+its own delay and CFO.  Each stage runs in a telemetry stage
+(``utils/telemetry.py``) named after its block, and the whole pass in the
+stage ``block_rx``.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ from __future__ import annotations
 import importlib
 
 import torch
-from torch.profiler import record_function as scope
 
 from .. import blocks
 from ..mode import RS_PACKET, SYMBOLS_PER_FRAME, DvbtMode
 from ..utils.bits import bits_to_bytes
+from ..utils.telemetry import stage
 
 
 def _beside(block: str, attr: str):
@@ -88,33 +89,33 @@ def make_block_receiver(mode: DvbtMode, device, n_samples_in: int,
     descramble = make("energy_descramble")(n_packets, device)
     detect = _beside("energy_descramble", "detect_dispersal_phase")
 
-    def rx(state: dict, capture: torch.Tensor):
+    def decode(state: dict, capture: torch.Tensor):
         n_mux = capture.shape[0]
-        with scope("synchronizer"):
+        with stage("synchronizer"):
             aligned, info = sync(capture)
-        with scope("ofdm_demodulator"):
+        with stage("ofdm_demodulator"):
             Y = demod(aligned)                            # (n_mux, S, K)
-        with scope("demod_reference_signals"):
+        with stage("demod_reference_signals"):
             X = Y / estimate(Y)
             tps_bits, _ = tps_dec(X.reshape(n_mux, n_frames_out,
                                             SYMBOLS_PER_FRAME, -1))
             payload = extract(X)
-        with scope("dvbt_demap"):
+        with stage("dvbt_demap"):
             cells = demap(payload)
-        with scope("symbol_inner_interleaver"):
+        with stage("symbol_inner_interleaver"):
             cells = sym_dilv(cells)                       # (n_mux, S, C)
-        with scope("bit_inner_interleaver"):
+        with stage("bit_inner_interleaver"):
             coded = bit_dilv(cells).reshape(n_mux, -1)    # soft {0, 15}
             steps = [s.contiguous() for s in depuncture(coded)]
-        with scope("viterbi_decoder"):
+        with stage("viterbi_decoder"):
             vstate, bits = viterbi(state["viterbi"], *steps)
-        with scope("convolutional_deinterleaver"):
+        with stage("convolutional_deinterleaver"):
             deint_tail, deint = out_dilv(state["deint_tail"],
                                          bits_to_bytes(bits))
-        with scope("reed_solomon_dec"):
+        with stage("reed_solomon_dec"):
             msg, rs_corr, rs_bad = rs_dec(deint.reshape(n_mux, n_packets,
                                                         RS_PACKET))
-        with scope("energy_descramble"):
+        with stage("energy_descramble"):
             phase = torch.where(state["descr_locked"], state["descr_phase"],
                                 detect(msg))
             new_phase, ts = descramble(phase, msg)
@@ -128,5 +129,9 @@ def make_block_receiver(mode: DvbtMode, device, n_samples_in: int,
         info = dict(info, rs_corrected=rs_corr, rs_uncorrectable=rs_bad,
                     tps_bits=tps_bits)
         return new_state, ts, info
+
+    def rx(state: dict, capture: torch.Tensor):
+        with stage("block_rx"):
+            return decode(state, capture)
 
     return rx, n_packets

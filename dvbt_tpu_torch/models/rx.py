@@ -12,14 +12,14 @@ the credible-phase latch.  Hierarchical modes decode both streams: of each
 cell's v deinterleaved bits, the first 2 go to HP and the rest to LP, each
 at its own code rate [EN300744 §4.3.4.1].  Every tensor carries a leading
 mux axis, where the JAX package vmaps.  The stages carry the JAX package's
-``named_scope`` names as profiler ranges.
+``named_scope`` names as telemetry stages (``utils/telemetry.py``):
+profiler ranges, and spans while a recorder is active.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function as scope
 
 from ..mode import RS_PACKET, SYMBOLS_PER_FRAME, DvbtMode
 from ..ops import (
@@ -33,6 +33,7 @@ from ..ops import (
     viterbi,
 )
 from ..utils.bits import bytes_to_bits
+from ..utils.telemetry import stage
 
 _STREAM_KEYS = ("deint_tail", "viterbi", "descr_phase", "descr_locked")
 
@@ -77,14 +78,14 @@ def _make_stream_decoder(mode: DvbtMode, stream: str, n_blocks: int, device,
 
     def run(state: dict, coded: torch.Tensor):
         n_mux = coded.shape[0]
-        with scope("viterbi_decode"):
+        with stage("viterbi_decode"):
             vstate, stream_bytes = vit(state["viterbi"], coded)
-        with scope("outer_deinterleave"):
+        with stage("outer_deinterleave"):
             deint_tail, deint = out_dilv(state["deint_tail"], stream_bytes)
         packets204 = deint.reshape(n_mux, n_packets, RS_PACKET)
-        with scope("rs_decode"):
+        with stage("rs_decode"):
             msg, rs_corr, rs_bad = rs_dec(packets204)
-        with scope("descramble"):
+        with stage("descramble"):
             detected = energy.detect_dispersal_phase(msg)
             phase = torch.where(state["descr_locked"], state["descr_phase"],
                                 detected)
@@ -105,7 +106,7 @@ def _make_stream_decoder(mode: DvbtMode, stream: str, n_blocks: int, device,
             # re-encoded message is the codeword that was sent, so its XOR
             # with the received codeword holds the errors RS corrected.
             # Uncorrectable packets read 0 (their count is unknown).
-            with scope("pre_rs_errors"):
+            with stage("pre_rs_errors"):
                 diff = packets204 ^ rs_enc(msg)
                 n_err = bytes_to_bits(diff).sum(-1, dtype=torch.int32)
                 metrics["pre_rs_bit_errors"] = torch.where(rs_bad, 0, n_err)
@@ -220,11 +221,11 @@ def make_receiver(mode: DvbtMode, device, n_frames: int | None = None,
         n_mux = iq.shape[0]
         out_metrics = {}
         chan_tail, chan_valid = state["chan_tail"], state["chan_valid"]
-        with scope("ofdm_demod"):
+        with stage("ofdm_demod"):
             carriers = demod(iq)                            # (n_mux, S, K)
         X = carriers
         if equalize:
-            with scope("channel_estimate"):
+            with stage("channel_estimate"):
                 if time_est:
                     chan_tail, H = est(chan_tail, chan_valid, carriers)
                     chan_valid = torch.ones_like(chan_valid)
@@ -236,10 +237,10 @@ def make_receiver(mode: DvbtMode, device, n_frames: int | None = None,
                 dphi = (H[..., 1:] * H[..., :-1].conj()).sum(-1)
                 out_metrics["timing_tau"] = -torch.angle(dphi) * tau_scale
         if full:
-            with scope("tps_decode"):
+            with stage("tps_decode"):
                 tps_bits, tps_frame = tps_dec(X.reshape(
                     n_mux, n_frames, SYMBOLS_PER_FRAME, -1))
-        with scope("demap_deinterleave"):
+        with stage("demap_deinterleave"):
             # permute first and demap the payload cells only (the demap is
             # elementwise, so it commutes with the cell permutation)
             Xc = cell_dilv(X)

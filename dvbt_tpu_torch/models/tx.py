@@ -10,13 +10,13 @@ bits, the layout the hierarchical bit interleaver reads [EN300744
 §4.3.4.1].  Every tensor carries a leading mux axis, where the JAX package
 vmaps; the carried state is a dict of (n_mux, ...) tensors with the JAX
 leaves.  The stages carry the JAX package's ``named_scope`` names as
-profiler ranges.
+telemetry stages (``utils/telemetry.py``): profiler ranges, and spans while
+a recorder is active.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function as scope
 
 from ..mode import RS_PACKET, SYMBOLS_PER_FRAME, DvbtMode
 
@@ -31,6 +31,7 @@ from ..ops import (
     reference_signals,
 )
 from ..utils.streams import split
+from ..utils.telemetry import stage
 
 _STREAM_KEYS = ("dispersal_phase", "outer_tail", "coder_state")
 
@@ -74,14 +75,14 @@ def _make_stream_pipeline(mode: DvbtMode, stream: str, n_blocks: int,
         if tuple(packets.shape[1:]) != (n_packets, 188):
             raise ValueError(f"{stream} packets {tuple(packets.shape)} are "
                              f"not (n_mux, {n_packets}, 188)")
-        with scope("energy_dispersal"):
+        with stage("energy_dispersal"):
             phase, randomized = disperse(state["dispersal_phase"], packets)
-        with scope("rs_encode"):
+        with stage("rs_encode"):
             coded204 = rs_enc(randomized)
-        with scope("outer_interleave"):
+        with stage("outer_interleave"):
             tail, interleaved = out_ilv(state["outer_tail"],
                                         coded204.reshape(n_mux, n_bytes))
-        with scope("inner_coder"):
+        with stage("inner_coder"):
             cstate, coded_bits = coder(state["coder_state"], interleaved)
         return {"dispersal_phase": phase, "outer_tail": tail,
                 "coder_state": cstate}, coded_bits
@@ -131,13 +132,13 @@ def make_transmitter(mode: DvbtMode, device, n_frames: int | None = None):
             per_sym = hp_bits
         per_sym = per_sym.reshape(n_mux, n_frames, SYMBOLS_PER_FRAME, -1)
         fidx = state["frame_idx"][:, None] + frame_offsets
-        with scope("bit_interleave"):
+        with stage("bit_interleave"):
             cells = bit_ilv(per_sym)
-        with scope("qam_map"):
+        with stage("qam_map"):
             points = qmap(cells)
-        with scope("frame_build"):
+        with stage("frame_build"):
             carriers = builder(fidx, points)
-        with scope("ofdm_mod"):
+        with stage("ofdm_mod"):
             iq = modulator(carriers).reshape(n_mux, n_samples)
         new_state = dict(hp_state,
                          frame_idx=(state["frame_idx"] + n_frames) % 4)
