@@ -14,7 +14,11 @@ with the carried state, and a numpy reference of the mother code; both
 at the hierarchical shapes: 8K alpha=2 HP 2/3 and LP 3/4 at 1 and 4
 frames, 2K alpha=2 HP 1/2 and LP 3/4; K1 also on the soft receiver's own
 CSI-weighted metrics under Annex B P1 at 20 dB; K3 at each stream's
-time-sharded halo shape), checks the 8K transmitter against the golden snapshot, then drives the
+time-sharded halo shape; and the RS decoder, byte for byte with its
+messages, counts and flags, at every receive path's packet count and odd
+ones, noiseless, with 1-8 and 9-16 byte errors a packet and a mix, then
+its time at the flagship step's packets, noiseless and with 8 errors),
+checks the 8K transmitter against the golden snapshot, then drives the
 flagship slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32; 8 muxes x 4
 frames per step) TX -> RX and checks that every mux returns its
 transport stream byte-exact.  Then it drives the block-level receive
@@ -132,6 +136,9 @@ STREAM_CHUNK = 1_000_003
 STREAM_PPM = 2.0
 READ_PPM = 40.0
 TRACKED_FRAMES = 8
+# the RS decoder's error classes: (fewest, most) byte errors a packet
+RS_ERRORS = {"noiseless": (0, 0), "1-8 errors": (1, 8),
+             "9-16 errors": (9, 16), "mix 0-16": (0, 16)}
 
 
 def card_line() -> str:
@@ -189,20 +196,136 @@ def doc_point(name: str, snr: float) -> dict:
 
 
 def counted(fn) -> tuple:
-    """(fn(), launches of K1 and K2 during it): the counters set to 0 just
-    before, read just after."""
+    """(fn(), launches of K1, K2 and the RS decoder during it): the
+    counters set to 0 just before, read just after."""
     import torch
 
     from dvbt_tpu_torch.kernels import coder as kcoder
+    from dvbt_tpu_torch.kernels import rs as krs
     from dvbt_tpu_torch.kernels import viterbi as kvit
 
     torch.cuda.synchronize()
     kcoder.launches = 0
     kvit.launches = 0
+    krs.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"viterbi_punct": kvit.launches,
-                 "byte_coder": kcoder.launches}
+                 "byte_coder": kcoder.launches, "rs_decode": krs.launches}
+
+
+def rs_phase(card: str, dev) -> tuple[dict, dict, tuple]:
+    """The RS decoder kernel against its plain version on the card, byte
+    for byte (messages, n_corrected, uncorrectable), at the shape of every
+    path that decodes: the UK and DE head-end steps and the capture pass (8
+    muxes x 4 frames), 2K BER blocks of one frame, the hierarchical 8K HP
+    and LP streams (8 muxes x 4 frames) and 2K ones (a frame), and odd
+    sizes (1, 3, 65 packets; codewords not 16-byte aligned); each under
+    RS_ERRORS: noiseless, 1-8 byte errors a packet, 9-16, and a mix of
+    0-16, with a synchronize after each case.  Then the kernel's time at
+    the UK step's 32,256 packets, noiseless and with 8 errors a packet,
+    beside the plain version's.  Returns (the mismatching packets of each
+    case, {error class: (kernel ms, plain ms)}, (bound ms, what sets
+    it))."""
+    import torch
+
+    from dvbt_tpu_torch import MODE_8K_UK
+    from dvbt_tpu_torch.coder_bench import profiler_ms
+    from dvbt_tpu_torch.kernels import rs as krs
+    from dvbt_tpu_torch.mode import DvbtMode
+    from dvbt_tpu_torch.ops import reed_solomon
+    from dvbt_tpu_torch.parallel.ring_bench import HIER_8K
+    from dvbt_tpu_torch.viterbi_bench import event_ms
+
+    gen = torch.Generator(device=dev).manual_seed(2028)
+    encode = reed_solomon.make_rs_encoder(dev)
+    decode = reed_solomon.make_rs_decoder(dev)
+    plain = krs.make_rs_decoder_plain(dev)
+
+    def codewords(lead, lo, hi):
+        """Codewords of random messages with lo..hi byte errors (random
+        nonzero values at distinct random positions) in each, and the
+        errors a packet."""
+        msg = torch.randint(0, 256, lead + (188,), generator=gen,
+                            dtype=torch.uint8, device=dev)
+        cw = encode(msg).reshape(-1, 204)
+        n = cw.shape[0]
+        n_err = torch.randint(lo, hi + 1, (n, 1), generator=gen, device=dev)
+        rank = torch.rand(n, 204, generator=gen, device=dev).argsort(
+            -1).argsort(-1)
+        val = torch.randint(1, 256, (n, 204), generator=gen,
+                            dtype=torch.uint8, device=dev)
+        cw = cw ^ torch.where(rank < n_err, val, 0).to(torch.uint8)
+        return cw.reshape(lead + (204,)), msg, n_err.reshape(lead)
+
+    de = DvbtMode("8k", "16qam", "2/3", "1/4")
+    h2k = hier_2k()
+    shapes = {
+        "UK head-end step and capture pass": (8, MODE_8K_UK.packets_per_block
+                                              * 4),
+        "DE head-end step": (8, de.packets_per_block * 4),
+        "2K QPSK 1/2 BER block": (1, DvbtMode("2k", "qpsk",
+                                              "1/2").packets_per_block),
+        "2K 64-QAM 7/8 BER block": (1, DvbtMode("2k", "64qam",
+                                                "7/8").packets_per_block),
+        **{f"8K alpha=2 {s.upper()} step":
+           (8, HIER_8K.stream_packets_per_block(s) * 4) for s in ("hp", "lp")},
+        **{f"2K alpha=2 {s.upper()} block": (
+            1, h2k.stream_packets_per_block(s)) for s in ("hp", "lp")},
+        "1 packet": (1,), "3 packets": (3,), "65 packets": (65,),
+    }
+    cases = {}
+    for name, lead in shapes.items():
+        for cls, (lo, hi) in RS_ERRORS.items():
+            cw, msg, n_err = codewords(lead, lo, hi)
+            if name == "65 packets":      # a view 204 bytes in: not aligned
+                cw = torch.cat([cw[:1], cw]).reshape(-1)[204:].reshape(
+                    cw.shape)
+                require(cw.data_ptr() % 16 != 0, "the unaligned case is "
+                        "16-byte aligned")
+            got = decode(cw)
+            want = plain(cw)
+            torch.cuda.synchronize()
+            diff = ((got[0] != want[0]).any(-1) | (got[1] != want[1])
+                    | (got[2] != want[2]))
+            key = f"{name} {tuple(cw.shape)}, {cls}"
+            cases[key] = int(diff.sum())
+            require(cases[key] == 0, f"RS kernel at {key}: {cases[key]} "
+                    "packets differ from the plain version")
+            ok = n_err <= 8
+            require(bool((got[1][ok] == n_err[ok]).all()
+                         and (got[0][ok] == msg[ok]).all()
+                         and not got[2][ok].any()),
+                    f"RS kernel at {key} did not correct up to 8 errors")
+    print(f"[rs] the RS kernel exact against its plain version in every "
+          f"case (packets differing): {cases} ({card})", flush=True)
+
+    # the kernel's own device time by the profiler (a call's host issue
+    # may take longer than the kernel: CUDA events over back-to-back calls
+    # then time the host, and are printed beside it)
+    lead = shapes["UK head-end step and capture pass"]
+    n_pk = lead[0] * lead[1]
+    times, events = {}, {}
+    for cls, (lo, hi) in (("noiseless", (0, 0)), ("8 errors", (8, 8))):
+        cw, _, _ = codewords(lead, lo, hi)
+        p1 = event_ms(lambda: plain(cw), 1)
+        a = profiler_ms(lambda: decode(cw), 100, "rs_decode_kernel")
+        b = profiler_ms(lambda: decode(cw), 100, "rs_decode_kernel")
+        events[cls] = event_ms(lambda: decode(cw), 100)
+        p2 = event_ms(lambda: plain(cw), 1)
+        torch.cuda.synchronize()
+        times[cls] = ((a + b) / 2, (p1 + p2) / 2)
+    # bytes: each codeword read, each message, count and flag written once;
+    # operations: the syndromes' 204 x 16 GF multiply-adds a packet, one
+    # int32 operation each
+    t_bound = bound(n_pk * (204 + 188 + 4 + 1), n_pk * 204 * 16)
+    for cls, (ms, plain_ms) in times.items():
+        print(f"[time] RS decode kernel at {n_pk} packets, {cls}: "
+              f"{ms:.4f} ms by the profiler (bound {t_bound[0]:.4f} ms, "
+              f"{t_bound[1]}; {t_bound[0] / ms:.1%} of it; events over "
+              f"back-to-back calls {events[cls]:.4f} ms), plain "
+              f"{plain_ms:.3f} ms ({card})", flush=True)
+    return cases, times, t_bound
 
 
 def k1_on_receiver_metrics(dev) -> tuple[int, float]:
@@ -301,8 +424,10 @@ def ber_phase(card: str, dev) -> dict:
                     f"{demap} {profile} {snr} dB seed {seed}: per {r['per']}"
                     f" > {PER_MAX}")
     n = len(BER_POINTS) * len(BER_SEEDS) * BER_BLOCKS
-    require(launches == {"viterbi_punct": n, "byte_coder": n},
-            f"the BER path did not launch K1 and K2 once a block: {launches}")
+    require(launches == {"viterbi_punct": n, "byte_coder": n,
+                         "rs_decode": n},
+            f"the BER path did not launch K1, K2 and the RS decoder once a "
+            f"block: {launches}")
     print(f"[ber] {len(results)} points in {secs:.2f} s with the build, "
           f"launches {launches}", flush=True)
     # planted faults, seed 0: the other demap (must fall outside BER_TOL),
@@ -383,9 +508,9 @@ def hierarchical_phase(card: str, dev) -> dict:
 
     outs, launches = counted(run)
     require(launches == {"viterbi_punct": 2 * n_steps,
-                         "byte_coder": 2 * n_steps},
-            f"the hierarchical step did not launch K1 and K2 twice: "
-            f"{launches}")
+                         "byte_coder": 2 * n_steps, "rs_decode": 2 * n_steps},
+            f"the hierarchical step did not launch K1, K2 and the RS decoder "
+            f"twice: {launches}")
     for k, key in enumerate(("rs_uncorrectable", "lp_rs_uncorrectable")):
         got = np.concatenate([ts[k].cpu().numpy() for ts, _ in outs], axis=1)
         want = sent[k].transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
@@ -429,7 +554,8 @@ def hierarchical_phase(card: str, dev) -> dict:
                 f"2K alpha=2 soft 6 dB seed {seed}: {r} against docs {ref}")
         require(r["lp_per"] >= 0.99, f"the LP stream decoded at 6 dB: {r}")
     n = 2 * HIER_BER_BLOCKS * len(HIER_BER_SEEDS)
-    require(launches2 == {"viterbi_punct": n, "byte_coder": n},
+    require(launches2 == {"viterbi_punct": n, "byte_coder": n,
+                          "rs_decode": n},
             f"the 2K hierarchical point's launches: {launches2}")
     # planted fault, seed 0: hard metrics where soft are expected
     r = ber_sweep.run_point(mode2, 6.0, HIER_BER_BLOCKS, demap="hard",
@@ -487,9 +613,10 @@ def validation_phase(card: str, dev) -> tuple[dict, dict, dict]:
     require(len(green) == len(mode_grid_hw.GRID) == 25,
             f"mode grid: {len(green)}/25 green: {results}")
     n = sum(2 * len(m.streams) for _, m in mode_grid_hw.GRID)
-    require(grid_launches == {"viterbi_punct": n, "byte_coder": n},
-            f"the mode grid did not launch K1 and K2 once a block and "
-            f"stream: {grid_launches}")
+    require(grid_launches == {"viterbi_punct": n, "byte_coder": n,
+                              "rs_decode": n},
+            f"the mode grid did not launch K1, K2 and the RS decoder once a "
+            f"block and stream: {grid_launches}")
     # every recorded call through the kernel, as the grid made it, and its
     # plain version: the calls of one shape stacked on the mux axis into
     # one plain call (its rows are independent; each plain call is a few
@@ -528,8 +655,10 @@ def validation_phase(card: str, dev) -> tuple[dict, dict, dict]:
                 f"ber_hw {line['curve']} {line['snr_db']} dB misses "
                 f"ber_curves' rule over seeds {BER_SEEDS}: {line}")
     n = sum(p[2] for p in ber_hw.POINTS) * len(BER_SEEDS)
-    require(ber_launches == {"viterbi_punct": n, "byte_coder": n},
-            f"ber_hw did not launch K1 and K2 once a block: {ber_launches}")
+    require(ber_launches == {"viterbi_punct": n, "byte_coder": n,
+                             "rs_decode": n},
+            f"ber_hw did not launch K1, K2 and the RS decoder once a block: "
+            f"{ber_launches}")
     print(f"[ber_hw] {len(lines)} points within ber_curves' rule "
           f"(spread_k {ber_curves.SPREAD_K}, floor {ber_curves.REL_FLOOR}) "
           f"over seeds {BER_SEEDS} in {time.perf_counter() - t0:.2f} s; "
@@ -641,9 +770,11 @@ def streaming_phase(card: str, dev, mode=None, hier=None,
     reports, launches = counted(lambda: feed(srx, stream))
     n = _stream_check(reports, pk, n_pk, srx.block_samples, STREAM_DELAY,
                       0.0, "pipeline=4")
-    require(launches["viterbi_punct"] == len(reports),
+    require(launches["viterbi_punct"] == launches["rs_decode"]
+            == len(reports),
             f"the streaming drive launched K1 {launches['viterbi_punct']} "
-            f"times for {len(reports)} blocks")
+            f"and the RS decoder {launches['rs_decode']} times for "
+            f"{len(reports)} blocks")
     print(f"[stream] {mode.transmission} {mode.constellation} "
           f"{mode.code_rate}, {STREAM_BLOCKS} one-frame blocks, delay "
           f"{STREAM_DELAY}, CFO {STREAM_CFO}, chunks of {STREAM_CHUNK}, "
@@ -731,7 +862,8 @@ def streaming_phase(card: str, dev, mode=None, hier=None,
         lambda: bench.tracked_bench(mode, dev, frames=frames))
     print(f"[stream] tracked: {json.dumps(tracked)} ({card})", flush=True)
     require(tracked_launches["viterbi_punct"] > 0
-            and tracked_launches["byte_coder"] > 0,
+            and tracked_launches["byte_coder"] > 0
+            and tracked_launches["rs_decode"] > 0,
             f"the tracked variant's launches: {tracked_launches}")
     prof = profile_slice._stream(dev, card, frames, mode)
     print(f"[time] tracked block ({frames} frames, pipeline=4), profiled "
@@ -861,6 +993,7 @@ def bench_phase(card: str, dev) -> dict:
 
     from dvbt_tpu_torch import MODE_8K_UK, bench, make_ts_packets
     from dvbt_tpu_torch.kernels import coder as kcoder
+    from dvbt_tpu_torch.kernels import rs as krs
     from dvbt_tpu_torch.kernels import viterbi as kvit
     from dvbt_tpu_torch.models import rx as rxm
     from dvbt_tpu_torch.models import tx as txm
@@ -870,6 +1003,7 @@ def bench_phase(card: str, dev) -> dict:
     torch.cuda.synchronize()
     kcoder.launches = 0
     kvit.launches = 0
+    krs.launches = 0
     t0 = time.time()
     graphed = bench.make_step(mode, dev, n_mux, n_frames, graph=True)
     t_capture = time.time() - t0
@@ -893,12 +1027,13 @@ def bench_phase(card: str, dev) -> dict:
 
     got, want = carried(graphed), carried(eager)
     torch.cuda.synchronize()
-    launches = {"byte_coder": kcoder.launches, "viterbi_punct": kvit.launches}
-    require(graphed.captured == {"byte_coder": 1, "viterbi_punct": 1},
-            f"the captured step did not launch K1 and K2 once each: "
-            f"{graphed.captured}")
+    launches = {"byte_coder": kcoder.launches, "viterbi_punct": kvit.launches,
+                "rs_decode": krs.launches}
+    require(graphed.captured == bench.CAPTURED_LAUNCHES,
+            f"the captured step did not launch K1, K2 and the RS decoder "
+            f"once each: {graphed.captured}")
     require(all(n > 0 for n in launches.values()),
-            f"the bench's step did not launch both kernels: {launches}")
+            f"the bench's step did not launch every kernel: {launches}")
     for s, (g_out, e_out) in enumerate(zip(got, want)):
         for (name, g), (_, e) in zip(g_out, e_out):
             require(g.dtype == e.dtype and g.shape == e.shape and torch.equal(
@@ -949,6 +1084,7 @@ def main() -> None:
     from dvbt_tpu_torch.mode import SYMBOLS_PER_FRAME, DvbtMode
     from dvbt_tpu_torch.kernels import _build
     from dvbt_tpu_torch.kernels import coder as kcoder
+    from dvbt_tpu_torch.kernels import rs as krs
     from dvbt_tpu_torch.kernels import viterbi as kvit
     from dvbt_tpu_torch.models import flowgraph
     from dvbt_tpu_torch.models import rx as rxm
@@ -1221,6 +1357,9 @@ def main() -> None:
     print(f"[K3] exact against its plain version in every case "
           f"{k3_cases}; decodes 8 x {flag_bits} noiseless bits", flush=True)
 
+    # --- 3b. the RS decoder against its plain version, and its time ------
+    rs_cases, rs_times, rs_bound = rs_phase(card_line(), dev)
+
     # --- 4. transmitter against the golden 8K snapshot -------------------
     want = np.load(ROOT / "tests" / "golden" / "tx_8k_64qam_23.npz")
     tx1, n_pk1, _ = txm.make_transmitter(mode, dev, n_frames=1)
@@ -1251,6 +1390,7 @@ def main() -> None:
     torch.cuda.synchronize()
     kcoder.launches = 0
     kvit.launches = 0
+    krs.launches = 0
     outs, bad, taus = [], [], []
     for s in range(n_steps):
         tst, iq = tx(tst, packets[s])
@@ -1259,9 +1399,13 @@ def main() -> None:
         bad.append(met["rs_uncorrectable"].cpu().numpy())
         taus.append(met["timing_tau"].cpu().numpy())
     torch.cuda.synchronize()
-    launches = {"coder": kcoder.launches, "viterbi": kvit.launches}
+    launches = {"coder": kcoder.launches, "viterbi": kvit.launches,
+                "rs_decode": krs.launches}
     require(launches["coder"] > 0 and launches["viterbi"] > 0,
             f"the main path did not launch both kernels: {launches}")
+    require(launches["rs_decode"] == launches["viterbi"] == n_steps,
+            f"the main path did not launch K1 and the RS decoder once a "
+            f"step: {launches}")
     out = np.concatenate(outs, axis=1)                    # (mux, pk, 188)
     flat_sent = sent.transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
     require(out.shape == flat_sent.shape, f"TS shape {out.shape}")
@@ -1312,11 +1456,14 @@ def main() -> None:
     require(blk_pk == n_pk, f"block path packets {blk_pk} != {n_pk}")
     torch.cuda.synchronize()
     kvit.depunct_launches = 0
+    krs.launches = 0
     _, blk_ts, blk_info = blk_rx(blk_state, capture)
     torch.cuda.synchronize()
-    blk_launches = {"viterbi_depunct": kvit.depunct_launches}
-    require(blk_launches["viterbi_depunct"] > 0,
-            f"the block path did not launch K3: {blk_launches}")
+    blk_launches = {"viterbi_depunct": kvit.depunct_launches,
+                    "rs_decode": krs.launches}
+    require(blk_launches == {"viterbi_depunct": 1, "rs_decode": 1},
+            f"the block path did not launch K3 and the RS decoder once: "
+            f"{blk_launches}")
     inf = {k: v.cpu().numpy() for k, v in blk_info.items()}
     blk_ts = blk_ts.cpu().numpy()
     flat_blk = blk_sent.transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
@@ -1443,7 +1590,9 @@ def main() -> None:
     k3_bytes = (sum(t.numel() for t in vin.k3_steps) + vin.k3_tail.numel()
                 + k3_out.numel())
     k3_ops = viterbi_ops(*k3_shape)
+    times["rs_decode"] = rs_times["noiseless"]
     bounds = {
+        "rs_decode": rs_bound,
         "viterbi": bound(k1_bytes, k1_ops, PACKED16_OPS_S),
         "coder": bound(stream.numel() + k2_out.numel() + state0.numel(),
                        k2_out.numel() * 5 / 32),
@@ -1461,7 +1610,8 @@ def main() -> None:
 
     # each kernel's launches on each path, every path counted alone
     by_path = {"slice": {"viterbi_punct": launches["viterbi"],
-                         "byte_coder": launches["coder"]},
+                         "byte_coder": launches["coder"],
+                         "rs_decode": launches["rs_decode"]},
                "block_path": blk_launches, "ber": ber_launches,
                **hier_launches, **stream_launches, **valid_launches,
                **dryrun_launches, "bench": bench_launches}
@@ -1490,6 +1640,11 @@ def main() -> None:
               "dvbt_tpu/kernels/viterbi_pallas.py:71",
               blk_launches["viterbi_depunct"], k3_err, k3_cases),
         k4_entry,
+        {**entry("rs_decode", "rs_decode", "dvbt_tpu_torch/csrc/rs.cu",
+                 None, launches["rs_decode"], max(rs_cases.values()),
+                 rs_cases),
+         "ms_8_errors": rs_times["8 errors"][0],
+         "plain_ms_8_errors": rs_times["8 errors"][1]},
     ]
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in

@@ -79,6 +79,7 @@ import torch
 
 from . import MODE_2K_QPSK, MODE_8K_UK, make_ts_packets
 from .kernels import coder as kcoder
+from .kernels import rs as krs
 from .kernels import viterbi as kvit
 from .mode import DvbtMode
 from .models import channel
@@ -95,6 +96,9 @@ MODES = {"8k64qam23": MODE_8K_UK, "2kqpsk12": MODE_2K_QPSK}
 REALTIME_MSPS = 64 / 7          # one mux in real time, Msamples/s
 PACKET_SEED = 7
 GRAPH_WARMUP_STEPS = 2          # eager steps on a side stream before capture
+# each kernel's launches in the captured step: the step decodes one stream,
+# so K1 and the RS decoder once each, and K2 codes it once
+CAPTURED_LAUNCHES = {"byte_coder": 1, "viterbi_punct": 1, "rs_decode": 1}
 TRACKED_CFO = 0.31              # the tracked stream's carrier offset
 
 
@@ -157,7 +161,7 @@ class GraphStep:
             for _ in range(GRAPH_WARMUP_STEPS):
                 eager(tst, rst, packets)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = (kcoder.launches, kvit.launches)
+        before = (kcoder.launches, kvit.launches, krs.launches)
         self.graph = torch.cuda.CUDAGraph()
         try:
             recording = (contextlib.nullcontext() if telemetry is None
@@ -173,10 +177,12 @@ class GraphStep:
             raise RuntimeError(f"capturing the TX -> RX step into a CUDA "
                                f"graph failed: {e}") from e
         self.captured = {"byte_coder": kcoder.launches - before[0],
-                         "viterbi_punct": kvit.launches - before[1]}
-        if self.captured != {"byte_coder": 1, "viterbi_punct": 1}:
+                         "viterbi_punct": kvit.launches - before[1],
+                         "rs_decode": krs.launches - before[2]}
+        if self.captured != CAPTURED_LAUNCHES:
             raise RuntimeError(f"the captured step launched the kernels "
-                               f"{self.captured}, not K1 and K2 once each")
+                               f"{self.captured}, not K1, K2 and the RS "
+                               f"decoder once each")
 
     def __call__(self, tst: dict, rst: dict, packets: torch.Tensor):
         given = state_leaves(tst, rst)

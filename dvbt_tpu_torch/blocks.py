@@ -134,7 +134,8 @@ BLOCKS = (
           "n_bytes must be a multiple of 204 (whole RS packets)"),
     Block("reed_solomon_dec", _P + "ops.reed_solomon.make_rs_decoder",
           "R9 reed_solomon_dec", "uint8 (..., P, 204)",
-          "(uint8 (..., P, 188), n_corrected, uncorrectable)", ("device",)),
+          "(uint8 (..., P, 188), n_corrected, uncorrectable)", ("device",),
+          "CUDA kernel csrc/rs.cu (plain PyTorch version on CPU tensors)"),
     Block("energy_descramble", _P + "ops.energy.make_energy_dispersal",
           "R10 energy_descramble",
           "uint8 (P, 188) + phase (detect: detect_dispersal_phase)",

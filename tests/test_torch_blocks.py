@@ -329,7 +329,8 @@ def test_receiver_options_match_jax(options):
 
 def test_registry_matches_jax():
     """Same block ids, references, ports, params and notes as the JAX
-    registry; params add ``device`` exactly where the factory takes it.
+    registry (the decoders' notes name their CUDA kernels); params add
+    ``device`` exactly where the factory takes it.
     The one contract that differs is the inner coder's: the port's takes
     the byte stream (the JAX package's coder_pallas kernel contract)."""
     import inspect
@@ -353,8 +354,9 @@ def test_registry_matches_jax():
             continue
         assert b.inputs == j.inputs and b.outputs == j.outputs, name
         assert params == j.params, name
-        if name != "viterbi_decoder":
+        if name not in ("viterbi_decoder", "reed_solomon_dec"):
             assert b.notes == j.notes, name
+    assert "CUDA kernel" in tb["reed_solomon_dec"].notes
     assert tb["viterbi_decoder"].factory == \
         "dvbt_tpu_torch.kernels.viterbi.make_viterbi_decoder"
 

@@ -133,28 +133,64 @@ def test_hard_demapper_matches_jax_including_ties(name):
         got.numpy(), np.asarray(j_map.make_demapper(mode)(jnp.asarray(y))))
 
 
-def test_rs_decoder_matches_jax_with_errors():
-    """0, 1, 8 (the limit), 9 and 12 byte errors: messages, corrected
-    counts and uncorrectable flags all match."""
+def _rs_errors(cw, rng, n_err, positions=None):
+    """XOR n_err nonzero bytes into each codeword of cw (..., 204), at
+    random positions or at random ones of ``positions``."""
+    flat = cw.reshape(-1, 204)
+    pool = np.arange(204) if positions is None else np.asarray(positions)
+    for p, ne in enumerate(np.broadcast_to(n_err, flat.shape[:1])):
+        pos = rng.choice(pool, ne, replace=False)
+        flat[p, pos] ^= rng.integers(1, 256, ne, dtype=np.uint8)
+
+
+# id -> (leading shape, byte errors a packet (scalar or one a packet),
+# positions the errors may take (None: all 204), all-zero messages)
+RS_CASES = {
+    "mixed_0_1_8_9_12": ((2, 15), np.tile([0, 1, 8, 9, 12], 6), None, False),
+    "errors_0": ((2, 6), 0, None, False),
+    "errors_1": ((2, 6), 1, None, False),
+    "errors_7": ((2, 6), 7, None, False),
+    "errors_8": ((2, 6), 8, None, False),
+    "errors_9": ((2, 6), 9, None, False),
+    "errors_12": ((2, 6), 12, None, False),
+    "errors_16": ((2, 6), 16, None, False),
+    "parity_only_1_to_16": ((2, 8), np.arange(1, 17), range(188, 204), False),
+    "positions_0_and_203": ((2, 6), 2, (0, 203), False),
+    "all_zero_codeword": ((2, 6), 0, None, True),
+    "one_packet": ((), 5, None, False),
+    "mux_axis": ((3, 4, 5), np.tile([0, 3, 8, 10, 15], 12), None, False),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_rs_decoder():
+    """One JAX decoder for every case: it compiles once a shape."""
+    return j_rs.make_rs_decoder()
+
+
+@pytest.mark.parametrize("case", list(RS_CASES))
+def test_rs_decoder_matches_jax_with_errors(case, jax_rs_decoder):
+    """Messages, corrected counts and uncorrectable flags all match the JAX
+    decoder's, uncorrectable packets' bytes included; up to 8 errors the
+    messages sent come back with the errors counted."""
+    lead, n_err, positions, zero = RS_CASES[case]
     rng = np.random.default_rng(4)
-    msg = rng.integers(0, 256, (2, 15, 188), dtype=np.uint8)
-    cw = tables.rs_encode_ref(msg)
-    n_err = [0, 1, 8, 9, 12]
-    for b in range(2):
-        for p in range(15):
-            ne = n_err[p % 5]
-            pos = rng.choice(204, ne, replace=False)
-            cw[b, p, pos] ^= rng.integers(1, 256, ne, dtype=np.uint8)
+    msg = (np.zeros(lead + (188,), np.uint8) if zero else
+           rng.integers(0, 256, lead + (188,), dtype=np.uint8))
+    cw = tables.rs_encode_ref(msg.reshape(-1, 188)).reshape(lead + (204,))
+    _rs_errors(cw, rng, n_err, positions)
     got = t_rs.make_rs_decoder("cpu")(torch.from_numpy(cw))
-    want = j_rs.make_rs_decoder()(jnp.asarray(cw))
+    want = jax_rs_decoder(jnp.asarray(cw))
     for g, w in zip(got, want):
+        assert g.shape == w.shape
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    n_corr, bad = got[1].numpy(), got[2].numpy()
-    ne = np.array(n_err * 3)
-    np.testing.assert_array_equal(got[0].numpy()[:, ne <= 8], msg[:, ne <= 8])
-    np.testing.assert_array_equal(n_corr[:, ne <= 8],
-                                  np.broadcast_to(ne[ne <= 8], (2, 9)))
-    assert not bad[:, ne <= 8].any()
+    ne = np.broadcast_to(n_err, msg.reshape(-1, 188).shape[:1])
+    ok = ne <= 8
+    np.testing.assert_array_equal(got[0].numpy().reshape(-1, 188)[ok],
+                                  msg.reshape(-1, 188)[ok])
+    np.testing.assert_array_equal(got[1].numpy().reshape(-1)[ok], ne[ok])
+    assert not got[2].numpy().reshape(-1)[ok].any()
+    assert got[2].numpy().reshape(-1)[ne == 16].all()
 
 
 def _encoded_blocks(rate, n_bits, n_blocks, flips, seed):
