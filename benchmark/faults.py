@@ -4,10 +4,11 @@ rest of the run (inputs, window, checks) is the run's own.
 
 Faults, each of which has to make ``correct`` come out false:
 
-- ``altered``: one byte of one TS packet changed where it is produced;
+- ``altered``: one byte of one TS packet changed where it is produced (in
+  a hierarchical head-end, of the LP stream only);
 - ``stale_state``: the step returns its carried state unchanged;
 - ``half_batch``: the second half of the muxes (captures) left out, their
-  TS zero;
+  TS zero (on both streams of a hierarchical head-end);
 - ``ref_bf16``: the head-end cells' control: the plain reference
   transmitter in the program's place, computed in bfloat16 (the step runs
   eagerly: the reference launches neither of the kernels the program's
@@ -34,6 +35,8 @@ import contextlib
 
 import numpy as np
 
+from .drivers.graph_step import join, streams
+
 FAULTS = {
     "graph_step": ("altered", "stale_state", "half_batch", "ref_bf16"),
     "stream_feeder": ("altered", "stale_state", "cfo_bias"),
@@ -49,15 +52,20 @@ CFO_BIAS = 0.02
 
 
 def _alter(ts):
-    ts = ts.clone()
-    ts[0, ts.shape[1] // 2, 5] ^= 1
-    return ts
+    """One byte changed; of a (HP, LP) pair, in the LP stream."""
+    *rest, last = streams(ts)
+    last = last.clone()
+    last[0, last.shape[1] // 2, 5] ^= 1
+    return join((*rest, last))
 
 
 def _halve(ts):
-    ts = ts.clone()
-    ts[ts.shape[0] // 2:] = 0
-    return ts
+    halved = []
+    for t in streams(ts):
+        t = t.clone()
+        t[t.shape[0] // 2:] = 0
+        halved.append(t)
+    return join(tuple(halved))
 
 
 def _acquisition_fp32(mode, n_samples: int):
@@ -105,10 +113,12 @@ def _reference_tx(ctx, make_tx):
         last: list = []
 
         def tx(st, pk):
-            prev = last[0] if last else torch.zeros_like(pk)
-            iq = reference.transmit(rmode, torch.cat([prev, pk], dim=1),
-                                    "bfloat16")[:, n_samp:]
-            last[:] = [pk.clone()]
+            pk = streams(pk)
+            prev = last or [torch.zeros_like(p) for p in pk]
+            both = join(tuple(torch.cat([a, b], dim=1)
+                              for a, b in zip(prev, pk)))
+            iq = reference.transmit(rmode, both, "bfloat16")[:, n_samp:]
+            last[:] = [p.clone() for p in pk]
             return st, iq.to(torch.complex64)
         return tx, n_pk, n_samp
     return make
@@ -152,7 +162,7 @@ def planted(driver: str, fault: str, ctx=None):
         make_rx, make_tx = rxm.make_receiver, txm.make_transmitter
         if fault == "ref_bf16":
             patch(txm, "make_transmitter", _reference_tx(ctx, make_tx))
-            patch(bench, "GraphStep", lambda eager, *a: eager)
+            patch(bench, "GraphStep", lambda eager, *a, **k: eager)
         elif fault == "stale_state":
             def make_tx_stale(*a, **k):
                 tx, n_pk, n_samp = make_tx(*a, **k)

@@ -10,7 +10,10 @@ compute (continual pilots, TPS carriers).
 ``transmit(mode, packets)`` runs one stream per row from the
 transmitter's start: energy dispersal from the first packet of an
 8-packet group, zero outer-interleaver and coder memory, frame 0 of a
-superframe.  Non-hierarchical modes only.
+superframe.  A hierarchical mode (``alpha`` 1, 2 or 4) carries two
+streams, each coded on its own: the high-priority (HP) stream at
+``code_rate`` in the quadrant bits, the low-priority (LP) stream at
+``code_rate_lp`` in the rest.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ PUNCTURED = {
 # DEMUX[v][k]; each sub-stream's 126-bit block interleaver H_e(w) = (w +
 # OFFSETS[e]) mod 126
 DEMUX = {2: (0, 1), 4: (0, 2, 1, 3), 6: (0, 2, 4, 1, 3, 5)}
+# §4.3.4.1, hierarchical modes: of each cell, the HP stream's bits x'_0,
+# x'_1 go to b0, b1 and the LP stream's x''_k to DEMUX_LP[v][k]
+DEMUX_HP = (0, 1)
+DEMUX_LP = {4: (2, 3), 6: (2, 4, 3, 5)}
 OFFSETS = (0, 63, 105, 42, 21, 84)
 # §4.3.4.2 bit permutations: (bit of R'_i, bit of R_i) pairs, R'_i from its
 # highest bit down, as the standard prints them
@@ -62,6 +69,7 @@ _TPS_RATE = {"1/2": "000", "2/3": "001", "3/4": "010", "5/6": "011",
              "7/8": "100"}
 _TPS_GUARD = {"1/32": "00", "1/16": "01", "1/8": "10", "1/4": "11"}
 _TPS_MODE = {"2k": "00", "8k": "01"}
+_TPS_HIERARCHY = {0: "000", 1: "001", 2: "010", 4: "011"}
 _BITS = {"qpsk": 2, "16qam": 4, "64qam": 6}
 _GUARD = {"1/32": 32, "1/16": 16, "1/8": 8, "1/4": 4}
 _RATE = {"1/2": (1, 2), "2/3": (2, 3), "3/4": (3, 4), "5/6": (5, 6),
@@ -70,13 +78,16 @@ _RATE = {"1/2": (1, 2), "2/3": (2, 3), "3/4": (3, 4), "5/6": (5, 6),
 
 @dataclasses.dataclass(frozen=True)
 class Mode:
-    """One non-hierarchical DVB-T mode, as a configuration file states it.
-    ``code_rate_lp`` is what TPS bits s33..s35 signal."""
+    """One DVB-T mode, as a configuration file states it.  ``alpha`` 0 is
+    non-hierarchical, where ``code_rate_lp`` is only what TPS bits
+    s33..s35 signal; 1, 2 or 4 is hierarchical, the LP stream coded at
+    ``code_rate_lp``."""
     transmission: str
     constellation: str
     code_rate: str
     guard: str
     code_rate_lp: str
+    alpha: int = 0
 
     @property
     def fft_len(self) -> int:
@@ -106,19 +117,29 @@ class Mode:
     def frame_len(self) -> int:
         return SYMBOLS_PER_FRAME * self.symbol_len
 
-    def packets_per_frame(self) -> float:
-        num, den = _RATE[self.code_rate]
-        return self.n_data * self.v * SYMBOLS_PER_FRAME * num / den \
+    @property
+    def streams(self) -> tuple:
+        """(bits a cell, code rate) of each stream, HP first."""
+        if not self.alpha:
+            return ((self.v, self.code_rate),)
+        return ((2, self.code_rate), (self.v - 2, self.code_rate_lp))
+
+    def packets_per_frame(self, stream: int = 0) -> float:
+        bits, rate = self.streams[stream]
+        num, den = _RATE[rate]
+        return self.n_data * bits * SYMBOLS_PER_FRAME * num / den \
             / (8 * RS_BYTES)
 
 
 def mode_from(config: dict) -> Mode:
     """The reference's mode from a configuration file's ``mode`` group."""
     m = config["mode"]
-    if m.get("alpha", 0):
-        raise ValueError("the reference transmitter is non-hierarchical")
+    alpha = m.get("alpha", 0)
+    if alpha not in (0, 1, 2, 4) or (alpha and m["constellation"] == "qpsk"):
+        raise ValueError(f"no DVB-T mode has alpha {alpha} with "
+                         f"{m['constellation']}")
     return Mode(m["transmission"], m["constellation"], m["code_rate"],
-                m["guard"], m["code_rate_lp"])
+                m["guard"], m["code_rate_lp"], alpha)
 
 
 # --- §4.3.1 energy dispersal -------------------------------------------------
@@ -228,17 +249,21 @@ def inner_code(bits: torch.Tensor, rate: str) -> torch.Tensor:
 
 # --- §4.3.4 inner interleaving, §4.3.5 mapping -------------------------------
 
-def bit_interleave(coded: torch.Tensor, mode: Mode) -> torch.Tensor:
-    """Coded bits (R, S, n_data * v) of S symbols -> symbol words y'_w
-    (R, S, n_data), y_0 the most significant bit."""
+def bit_interleave(coded: tuple, mode: Mode) -> torch.Tensor:
+    """Each stream's coded bits (R, S, n_data * bits a cell) of S symbols,
+    HP first -> symbol words y'_w (R, S, n_data), y_0 the most
+    significant bit."""
     v = mode.v
-    x = coded.reshape(*coded.shape[:-1], -1, 126, v)   # [.., block, w, k]
-    w = torch.arange(126, device=coded.device)
-    words = torch.zeros(x.shape[:-1], dtype=torch.int64, device=coded.device)
-    for k, e in enumerate(DEMUX[v]):
-        a = x[..., (w + OFFSETS[e]) % 126, k]          # a_e(w) = b_e(H_e(w))
-        words |= a.to(torch.int64) << (v - 1 - e)
-    return words.reshape(*coded.shape[:-1], mode.n_data)
+    demux = (DEMUX_HP, DEMUX_LP[v]) if mode.alpha else (DEMUX[v],)
+    w = torch.arange(126, device=coded[0].device)
+    words = torch.zeros(coded[0].shape[:-1] + (mode.n_data // 126, 126),
+                        dtype=torch.int64, device=coded[0].device)
+    for bits, targets in zip(coded, demux, strict=True):
+        x = bits.reshape(*bits.shape[:-1], -1, 126, len(targets))
+        for k, e in enumerate(targets):
+            a = x[..., (w + OFFSETS[e]) % 126, k]      # a_e(w) = b_e(H_e(w))
+            words |= a.to(torch.int64) << (v - 1 - e)
+    return words.reshape(*coded[0].shape[:-1], mode.n_data)
 
 
 @functools.lru_cache(maxsize=None)
@@ -283,10 +308,12 @@ def symbol_interleave(words: torch.Tensor, mode: Mode) -> torch.Tensor:
     return out
 
 
-def qam(words: torch.Tensor, v: int) -> torch.Tensor:
+def qam(words: torch.Tensor, v: int, alpha: int = 0) -> torch.Tensor:
     """Gray mapping of Fig. 9: I from y0, y2, y4 and Q from y1, y3, y5;
     y0 / y1 the sign (1: negative), the rest the Gray-coded amplitude;
-    normalised to unit mean power."""
+    normalised to unit mean power.  The non-uniform constellations of
+    §4.3.5 (``alpha`` 2, 4) move every amplitude out by alpha - 1, so
+    that the quadrants lie 2 alpha apart."""
     def axis(first: int):
         sign = 1.0 - 2.0 * ((words >> (v - 1 - first)) & 1).to(torch.float64)
         m = v // 2 - 1                    # amplitude bits per axis
@@ -296,10 +323,13 @@ def qam(words: torch.Tensor, v: int) -> torch.Tensor:
             acc = acc ^ ((words >> (v - 1 - (first + 2 * (j + 1)))) & 1)
             g = (g << 1) | acc            # Gray -> binary
         amp = (2 ** (m + 1) - 1) - 2 * g.to(torch.float64)
-        return sign * amp
+        return sign * (amp + max(alpha - 1, 0))
 
-    scale = {2: 2.0, 4: 10.0, 6: 42.0}[v] ** -0.5
-    return torch.complex(axis(0), axis(1)) * scale
+    # mean power of the unnormalised points, §4.3.5
+    power = {(2, 0): 2.0, (4, 0): 10.0, (6, 0): 42.0, (4, 1): 10.0,
+             (4, 2): 20.0, (4, 4): 52.0, (6, 1): 42.0, (6, 2): 60.0,
+             (6, 4): 108.0}[v, alpha]
+    return torch.complex(axis(0), axis(1)) * power ** -0.5
 
 
 # --- §4.4-4.6 frame, pilots, TPS, OFDM ---------------------------------------
@@ -326,8 +356,9 @@ def tps_bits(mode: Mode, frame: int) -> np.ndarray:
     """s0 .. s67 of frame ``frame`` (0..3) of a superframe; s0 is 0."""
     sync = _SYNC_WORD if frame % 2 == 0 else "".join(
         "1" if c == "0" else "0" for c in _SYNC_WORD)
-    body = (sync + "010111" + f"{frame:02b}" + _TPS_V[mode.v] + "000"
-            + _TPS_RATE[mode.code_rate] + _TPS_RATE[mode.code_rate_lp]
+    body = (sync + "010111" + f"{frame:02b}" + _TPS_V[mode.v]
+            + _TPS_HIERARCHY[mode.alpha] + _TPS_RATE[mode.code_rate]
+            + _TPS_RATE[mode.code_rate_lp]
             + _TPS_GUARD[mode.guard] + _TPS_MODE[mode.transmission]
             + "0" * 14)                               # s1 .. s53
     # BCH(67, 53): the remainder of s(x) x^14 by x^14+x^9+x^8+x^6+x^5+
@@ -393,25 +424,37 @@ def _round_bf16(z: torch.Tensor) -> torch.Tensor:
                          z.imag.to(torch.bfloat16).to(torch.float64))
 
 
-def transmit(mode: Mode, packets: torch.Tensor,
-             precision: str = "float64") -> torch.Tensor:
-    """uint8 TS packets (R, P, 188), P a whole number of frames, -> the
-    complex128 baseband (R, P / packets_per_frame * frame_len) of each
-    row's stream from the transmitter's start."""
+def _code(packets: torch.Tensor, rate: str) -> torch.Tensor:
+    """One stream's TS packets (R, P, 188) -> its coded bits (R, n):
+    energy dispersal, RS(204, 188), outer interleaver, inner code."""
     R, P, _ = packets.shape
     dev = packets.device
-    ppf = mode.packets_per_frame()
-    n_frames = P / ppf
-    if n_frames != int(n_frames):
-        raise ValueError(f"{P} packets are not whole frames of {ppf}")
-    n_frames = int(n_frames)
     mask = torch.as_tensor(dispersal_mask(), device=dev)
     scrambled = packets ^ mask[torch.arange(P, device=dev) % 8]
     stream = outer_interleave(rs_encode(scrambled).reshape(R, -1))
-    coded = inner_code(unpack_bits(stream), mode.code_rate)
+    return inner_code(unpack_bits(stream), rate)
+
+
+def transmit(mode: Mode, packets, precision: str = "float64") -> torch.Tensor:
+    """uint8 TS packets (R, P, 188), P a whole number of frames, or in a
+    hierarchical mode the (HP, LP) pair of them over the same frames, ->
+    the complex128 baseband (R, frames * frame_len) of each row's
+    streams from the transmitter's start."""
+    streams = tuple(packets) if mode.alpha else (packets,)
+    R = streams[0].shape[0]
+    dev = streams[0].device
+    per_frame = [mode.packets_per_frame(i) for i in range(len(streams))]
+    n_frames = streams[0].shape[1] / per_frame[0]
+    if not n_frames.is_integer() or any(
+            pk.shape[1] != n_frames * f for pk, f in zip(streams, per_frame)):
+        raise ValueError(f"{[pk.shape[1] for pk in streams]} packets are "
+                         f"not the same whole frames of {per_frame}")
+    n_frames = int(n_frames)
     S = n_frames * SYMBOLS_PER_FRAME
-    words = bit_interleave(coded.reshape(R, S, -1), mode)
-    cells = qam(symbol_interleave(words, mode), mode.v)
+    coded = tuple(_code(pk, rate).reshape(R, S, -1)
+                  for pk, (_, rate) in zip(streams, mode.streams))
+    words = bit_interleave(coded, mode)
+    cells = qam(symbol_interleave(words, mode), mode.v, mode.alpha)
     ref_np, data_np = _frame_layout(mode)
     ref = torch.as_tensor(ref_np, device=dev)        # (4, 68, K)
     data = torch.as_tensor(data_np, device=dev)      # (4, n_data)

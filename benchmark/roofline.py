@@ -44,3 +44,14 @@ def viterbi_bound_s(n_mux: int, n_packets: int, code_rate: str) -> float:
 def rs_decode_bound_s(n_mux: int, n_packets: int) -> float:
     """RS(204, 188) decode of one step: 204 bytes in and 188 out a packet."""
     return n_mux * n_packets * (RS_BYTES + TS_BYTES) / HBM_BYTES_S
+
+
+def streams(reading: dict) -> list:
+    """[[n_packets, code_rate], ...] of a head-end reading, one a stream
+    and HP first: its ``streams`` where it has them (a hierarchical
+    mode), else its one stream.  A step's bound is the sum of its
+    streams' bounds: each stream's decode is bound by the same resource
+    (Viterbi by its operations at every code rate, RS by its bytes), so
+    the sum is also the bound of their work together."""
+    return reading.get("streams") or [[reading["n_packets"],
+                                       reading["code_rate"]]]

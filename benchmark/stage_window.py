@@ -4,8 +4,8 @@ cell's unit, after the driver's own, with a
 readers of the ``graph_*`` and ``host_ms.*`` metrics read its
 ``Recorder.summary()``.
 
-- Head-end cells (driver ``graph_step``): the step composed as the driver
-  composes it, captured by ``GraphStep`` with the recorder, so that each
+- Head-end cells (driver ``graph_step``): the driver's step, on one
+  stream or two, captured by ``GraphStep`` with the recorder, so that each
   stage's CUDA events are nodes of the graph; one replay to warm, then
   ``trace_steps`` replays over the seed's packet pool, each followed by a
   synchronize and ``collect()``.  The device time of each stage in the
@@ -90,37 +90,22 @@ def window(ctx: common.Context) -> dict | None:
 
 def _headend(ctx, rec) -> dict:
     import torch
-    from dvbt_tpu_torch import DvbtMode
-    from dvbt_tpu_torch.models import rx as rxm
-    from dvbt_tpu_torch.models import tx as txm
 
     from .drivers import graph_step
 
     dev = torch.device(ctx.device)
-    mode = DvbtMode(**ctx.config["mode"])
-    n_mux, n_frames = ctx.mix["n_mux"], ctx.mix["frames"]
-    tx, n_pk, _ = txm.make_transmitter(mode, dev, n_frames)
-    rx, _, _ = rxm.make_receiver(mode, dev, n_frames,
-                                 **ctx.config["receiver"])
-
-    def eager(tst, rst, packets):
-        tst, iq = tx(tst, packets)
-        rst, ts, met = rx(rst, iq)
-        return tst, rst, ts, met["rs_uncorrectable"]
-
+    eager, tst, rst, _, n_pk, _ = graph_step.compose(ctx)
     pool = graph_step.packet_pool(ctx, n_pk)
-    tst = txm.init_tx_state(mode, n_mux, dev)
-    rst = rxm.init_rx_state(mode, n_mux, dev)
     if dev.type == "cuda":
         from dvbt_tpu_torch.bench import GraphStep
-        step = GraphStep(eager, tst, rst, torch.zeros_like(pool[0]),
-                         telemetry=rec)
+        step = GraphStep(eager, tst, rst, graph_step.static_packets(
+            ctx.mix["n_mux"], n_pk, dev), telemetry=rec)
         recording = contextlib.nullcontext()
     else:
         step, recording = eager, rec
     for k in range(1 + ctx.mix["trace_steps"]):     # the first warms
         with recording if k else contextlib.nullcontext():
-            tst, rst, _, _ = step(tst, rst, pool[k % len(pool)])
+            tst, rst, _, _ = step(tst, rst, pool[k])
         common.sync(dev)
         if k:
             rec.collect()

@@ -95,6 +95,46 @@ def test_roofline_counts_from_shapes():
         t * 2 / 3)
 
 
+@pytest.mark.parametrize("n_packets", [4032, 2688], ids=["uk", "de"])
+def test_roofline_of_one_stream_reads_as_before(n_packets):
+    """A reading without ``streams`` (every non-hierarchical cell) gives
+    exactly the shares its one stream's bounds give."""
+    r = {"kind": "txrx", "n_mux": 8, "n_packets": n_packets,
+         "code_rate": "2/3",
+         "ranges": {"viterbi_decode": 1500.0, "rs_decode": 17.6}}
+    assert roofline.streams(r) == [[n_packets, "2/3"]]
+    info_bits = 8 * n_packets * 204 * 8
+    assert roofline.viterbi_bound_s(8, n_packets, "2/3") == \
+        info_bits * 64 * 3 / (4 * 132 * 128 * 1.98e9)
+    assert roofline.rs_decode_bound_s(8, n_packets) == \
+        8 * n_packets * 392 / 3.35e12
+    assert run.reader("viterbi_roofline.txrx")(None, r) == \
+        100.0 * roofline.viterbi_bound_s(8, n_packets, "2/3") / 1.5e-3
+    assert run.reader("rs_decode_roofline.txrx")(None, r) == \
+        100.0 * roofline.rs_decode_bound_s(8, n_packets) / (17.6 / 1e6)
+
+
+def test_roofline_of_two_streams_sums_them():
+    """A hierarchical reading (the 8K alpha = 2 deployment's shapes: HP
+    1,344 packets at 2/3, LP 3,024 at 3/4): each bound is the sum of its
+    streams'."""
+    r = {"kind": "txrx", "n_mux": 8, "streams": [[1344, "2/3"],
+                                                 [3024, "3/4"]],
+         "ranges": {"viterbi_decode": 1500.0, "rs_decode": 17.6}}
+    vit = roofline.viterbi_bound_s(8, 1344, "2/3") + \
+        roofline.viterbi_bound_s(8, 3024, "3/4")
+    rs = roofline.rs_decode_bound_s(8, 1344) + \
+        roofline.rs_decode_bound_s(8, 3024)
+    assert run.reader("viterbi_roofline.txrx")(None, r) == pytest.approx(
+        100 * vit / 1.5e-3)
+    assert run.reader("rs_decode_roofline.txrx")(None, r) == pytest.approx(
+        100 * rs / 17.6e-6)
+    # each stream's Viterbi is bound by its operations, so the sum is the
+    # bound of the two together
+    assert vit == pytest.approx(8 * (1344 + 3024) * 204 * 8 * 64 * 3
+                                / (4 * 132 * 128 * 1.98e9))
+
+
 def test_readers_from_a_trace_and_a_reading():
     events = [_ev("kernel", "k", 10 * i, 5) for i in range(40)]
     events += [_ev("gpu_memcpy", "Memcpy HtoD", 400, 50),
