@@ -25,7 +25,12 @@ The step.  ``bench.py`` runs TX and RX as one compiled program a step
 graph=True)``: one TX + RX step captured once into a CUDA graph over
 static input tensors and replayed every call; the carried state comes
 back into the static inputs by one ``copy_`` per state leaf captured at
-the end of the graph.  ``graph=False`` runs the same step eagerly.
+the end of the graph.  ``graph=False`` runs the same step eagerly.  A
+hierarchical mode's step takes and gives (HP, LP) pairs, as the program's
+transmitter and receiver do: packets, TS and uncorrectable flags, one
+static input a stream in the graph.  The command line below keeps its two
+non-hierarchical modes; the hierarchical step is driven through
+``make_step`` (the benchmark's head-end cells do so).
 
 Differences from ``bench.py``, on purpose:
 
@@ -90,14 +95,16 @@ from .ops import inner_coder
 from .ops import viterbi as vops
 from .ops.outer_interleaver import DELAY_PACKETS
 from .utils import puncture
+from .utils.streams import join, split
 from .utils.telemetry import Recorder, stage
 
 MODES = {"8k64qam23": MODE_8K_UK, "2kqpsk12": MODE_2K_QPSK}
 REALTIME_MSPS = 64 / 7          # one mux in real time, Msamples/s
 PACKET_SEED = 7
 GRAPH_WARMUP_STEPS = 2          # eager steps on a side stream before capture
-# each kernel's launches in the captured step: the step decodes one stream,
-# so K1 and the RS decoder once each, and K2 codes it once
+# each kernel's launches in the captured step of one stream: K2 codes it,
+# K1 and the RS decoder decode it, once each; a hierarchical step launches
+# each once a stream (``captured_launches``)
 CAPTURED_LAUNCHES = {"byte_coder": 1, "viterbi_punct": 1, "rs_decode": 1}
 TRACKED_CFO = 0.31              # the tracked stream's carrier offset
 
@@ -108,6 +115,14 @@ class BenchFailure(RuntimeError):
 
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def captured_launches(packets) -> dict:
+    """Each kernel's launches expected in the captured step that takes
+    ``packets``: ``CAPTURED_LAUNCHES`` once a stream, so twice for a
+    hierarchical mode's (HP, LP) pair."""
+    n = 2 if isinstance(packets, (tuple, list)) else 1
+    return {k: n * v for k, v in CAPTURED_LAUNCHES.items()}
 
 
 def state_leaves(tx_state: dict, rx_state: dict) -> list:
@@ -129,13 +144,16 @@ def state_leaves(tx_state: dict, rx_state: dict) -> list:
 class GraphStep:
     """One TX + RX step captured into a CUDA graph and replayed a call.
 
-    ``step(tst, rst, packets) -> (tst', rst', ts, rs_uncorrectable)``.  The
-    returned states are the graph's static inputs, updated in place by the
-    replay; passed back in, they cost no copy (any other tensors are copied
-    in first).  ``ts`` and ``rs_uncorrectable`` live in the graph's pool and
-    are overwritten by the next replay: clone what is kept.  ``captured``
-    holds each kernel's launches in the captured step, which every replay
-    launches again.
+    ``step(tst, rst, packets) -> (tst', rst', ts, rs_uncorrectable)``, with
+    ``packets`` one tensor or, in a hierarchical mode, the (HP, LP) pair,
+    and ``ts`` and ``rs_uncorrectable`` alike.  The returned states are the
+    graph's static inputs, updated in place by the replay; passed back in,
+    they cost no copy (any other tensors are copied in first, a stream's
+    packets too).  ``ts`` and ``rs_uncorrectable`` live in the graph's
+    pool and are overwritten by the next replay: clone what is kept.
+    ``captured`` holds each kernel's launches in the captured step, which
+    every replay launches again: ``captured_launches(packets)``, or the
+    capture fails.
 
     The captured body, state copy-back included, runs in the stage
     ``graph_step``.  With ``telemetry`` (a ``utils.telemetry.Recorder``),
@@ -145,13 +163,15 @@ class GraphStep:
     replay's device time of each stage.  Without it the graph holds the
     step's operations alone."""
 
-    def __init__(self, eager, tst: dict, rst: dict, packets: torch.Tensor,
+    def __init__(self, eager, tst: dict, rst: dict, packets,
                  telemetry: Recorder | None = None):
-        dev = packets.device
+        self._hier = isinstance(packets, (tuple, list))
+        self._packets = split(packets, self._hier)
+        dev = self._packets[0].device
         # the graph reads the step's tables (the closures' tensors) by
         # address: keep them alive as long as the graph
         self._eager = eager
-        self._tst, self._rst, self._packets = tst, rst, packets
+        self._tst, self._rst = tst, rst
         self._static = state_leaves(tst, rst)
         # cuFFT plans, the kernel library and K1's launch attributes are
         # made by eager steps; none of them may be made during capture
@@ -179,12 +199,13 @@ class GraphStep:
         self.captured = {"byte_coder": kcoder.launches - before[0],
                          "viterbi_punct": kvit.launches - before[1],
                          "rs_decode": krs.launches - before[2]}
-        if self.captured != CAPTURED_LAUNCHES:
+        if self.captured != captured_launches(packets):
             raise RuntimeError(f"the captured step launched the kernels "
                                f"{self.captured}, not K1, K2 and the RS "
-                               f"decoder once each")
+                               f"decoder once each"
+                               + (" a stream" if self._hier else ""))
 
-    def __call__(self, tst: dict, rst: dict, packets: torch.Tensor):
+    def __call__(self, tst: dict, rst: dict, packets):
         given = state_leaves(tst, rst)
         if [n for n, _ in given] != [n for n, _ in self._static]:
             raise ValueError("the carried state does not have the captured "
@@ -192,8 +213,14 @@ class GraphStep:
         for (_, dst), (_, src) in zip(self._static, given):
             if src is not dst:
                 dst.copy_(src)
-        if packets is not self._packets:
-            self._packets.copy_(packets)
+        if isinstance(packets, (tuple, list)) != self._hier:
+            raise ValueError("the captured step takes "
+                             + ("the (HP, LP) pair of packets" if self._hier
+                                else "one tensor of packets"))
+        for dst, src in zip(self._packets, split(packets, self._hier),
+                            strict=True):
+            if src is not dst:
+                dst.copy_(src)
         self.graph.replay()
         return self._tst, self._rst, self._ts, self._bad
 
@@ -219,13 +246,17 @@ def make_step(mode: DvbtMode, device, n_mux: int, n_frames: int,
               telemetry: Recorder | None = None):
     """The flagship step: ``step(tst, rst, packets) -> (tst', rst', ts,
     rs_uncorrectable)`` with packets uint8 (n_mux, n_packets, 188), ts
-    alike and rs_uncorrectable bool (n_mux, n_packets).  The receiver
-    demaps as ``demap`` says ("hard", or "soft": CSI-weighted max-log).
+    alike and rs_uncorrectable bool (n_mux, n_packets).  In a hierarchical
+    mode each of the three is the (HP, LP) pair, n_packets the (n_hp,
+    n_lp) pair, and the flags are the receiver's ``rs_uncorrectable`` and
+    ``lp_rs_uncorrectable``.  The receiver demaps as ``demap`` says
+    ("hard", or "soft": CSI-weighted max-log).
 
-    ``graph=True`` captures the step into a CUDA graph (``GraphStep``);
-    it needs a CUDA device and raises where capture fails.  ``graph=False``
-    returns the eager step.  Either has ``n_packets`` and ``n_samples``
-    (per mux) attributes.
+    ``graph=True`` captures the step into a CUDA graph (``GraphStep``,
+    over zeroed static packets of each stream); it needs a CUDA device
+    and raises where capture fails.  ``graph=False`` returns the eager
+    step.  Either has ``n_packets`` and ``n_samples`` (per mux)
+    attributes.
 
     With ``telemetry`` (a ``utils.telemetry.Recorder``) every call records
     one span per stage: the graph's stage events are captured into it, the
@@ -241,16 +272,22 @@ def make_step(mode: DvbtMode, device, n_mux: int, n_frames: int,
     rx, _, _ = rxm.make_receiver(mode, device, n_frames, metrics=metrics,
                                  demap=demap)
 
+    hier = mode.hierarchical
+    # the receiver's uncorrectable flags of each stream, HP first
+    flags = ("rs_uncorrectable", "lp_rs_uncorrectable")[:1 + hier]
+
     def eager(tst, rst, packets):
         tst, iq = tx(tst, packets)
         rst, ts, met = rx(rst, iq)
-        return tst, rst, ts, met["rs_uncorrectable"]
+        return tst, rst, ts, join([met[f] for f in flags], hier)
 
     if graph:
         step = GraphStep(
             eager, txm.init_tx_state(mode, n_mux, device),
             rxm.init_rx_state(mode, n_mux, device),
-            torch.zeros(n_mux, n_pk, 188, dtype=torch.uint8, device=device),
+            join([torch.zeros(n_mux, n, 188, dtype=torch.uint8,
+                              device=device)
+                  for n in split(n_pk, hier)], hier),
             telemetry=telemetry)
     elif telemetry is not None:
         def step(tst, rst, packets):

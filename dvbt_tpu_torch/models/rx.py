@@ -13,7 +13,9 @@ cell's v deinterleaved bits, the first 2 go to HP and the rest to LP, each
 at its own code rate [EN300744 §4.3.4.1].  Every tensor carries a leading
 mux axis, where the JAX package vmaps.  The stages carry the JAX package's
 ``named_scope`` names as telemetry stages (``utils/telemetry.py``):
-profiler ranges, and spans while a recorder is active.
+profiler ranges, and spans while a recorder is active.  Hierarchical modes
+add ``lp_decode`` around the LP stream's decoder, whose stages keep their
+names inside it (so a stage's time sums both streams).
 """
 
 from __future__ import annotations
@@ -259,7 +261,8 @@ def make_receiver(mode: DvbtMode, device, n_frames: int | None = None,
             {k: state[k] for k in _STREAM_KEYS}, bits[0])
         out_metrics.update(m_hp)
         if hier:
-            lp_state, ts_lp, m_lp = lp_dec(state["lp"], bits[1])
+            with stage("lp_decode"):
+                lp_state, ts_lp, m_lp = lp_dec(state["lp"], bits[1])
             out_metrics.update({f"lp_{k}": v for k, v in m_lp.items()})
             ts = (ts, ts_lp)
         new_state = dict(hp_state, chan_tail=chan_tail, chan_valid=chan_valid)

@@ -11,7 +11,9 @@ bits, the layout the hierarchical bit interleaver reads [EN300744
 vmaps; the carried state is a dict of (n_mux, ...) tensors with the JAX
 leaves.  The stages carry the JAX package's ``named_scope`` names as
 telemetry stages (``utils/telemetry.py``): profiler ranges, and spans while
-a recorder is active.
+a recorder is active.  Hierarchical modes add two: ``lp_code`` around the
+LP pipeline, whose stages keep their names inside it (so a stage's time
+sums both streams), and ``stream_mux`` around the zip into cell slots.
 """
 
 from __future__ import annotations
@@ -124,10 +126,12 @@ def make_transmitter(mode: DvbtMode, device, n_frames: int | None = None):
         hp_state, hp_bits = hp_pipe({k: state[k] for k in _STREAM_KEYS},
                                     pks[0])
         if hier:
-            lp_state, lp_bits = lp_pipe(state["lp"], pks[1])
-            per_sym = torch.cat(
-                [hp_bits.reshape(n_mux, *slots, 2),
-                 lp_bits.reshape(n_mux, *slots, mode.v - 2)], dim=-1)
+            with stage("lp_code"):
+                lp_state, lp_bits = lp_pipe(state["lp"], pks[1])
+            with stage("stream_mux"):
+                per_sym = torch.cat(
+                    [hp_bits.reshape(n_mux, *slots, 2),
+                     lp_bits.reshape(n_mux, *slots, mode.v - 2)], dim=-1)
         else:
             per_sym = hp_bits
         per_sym = per_sym.reshape(n_mux, n_frames, SYMBOLS_PER_FRAME, -1)
