@@ -17,7 +17,10 @@ CSI-weighted metrics under Annex B P1 at 20 dB; K3 at each stream's
 time-sharded halo shape; and the RS decoder, byte for byte with its
 messages, counts and flags, at every receive path's packet count and odd
 ones, noiseless, with 1-8 and 9-16 byte errors a packet and a mix, then
-its time at the flagship step's packets, noiseless and with 8 errors),
+its time at the flagship step's packets, noiseless and with 8 errors;
+and the RS encoder, byte for byte, at every transmit path's packet count,
+2K frames and odd ones, on random, all-zero, all-0xFF and TS packets, then
+its time at the flagship step's packets),
 checks the 8K transmitter against the golden snapshot, then drives the
 flagship slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32; 8 muxes x 4
 frames per step) TX -> RX and checks that every mux returns its
@@ -78,6 +81,7 @@ Needs a CUDA device: without one it exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -196,8 +200,8 @@ def doc_point(name: str, snr: float) -> dict:
 
 
 def counted(fn) -> tuple:
-    """(fn(), launches of K1, K2 and the RS decoder during it): the
-    counters set to 0 just before, read just after."""
+    """(fn(), launches of K1, K2, the RS decoder and the RS encoder during
+    it): the counters set to 0 just before, read just after."""
     import torch
 
     from dvbt_tpu_torch.kernels import coder as kcoder
@@ -208,10 +212,12 @@ def counted(fn) -> tuple:
     kcoder.launches = 0
     kvit.launches = 0
     krs.launches = 0
+    krs.encode_launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"viterbi_punct": kvit.launches,
-                 "byte_coder": kcoder.launches, "rs_decode": krs.launches}
+                 "byte_coder": kcoder.launches, "rs_decode": krs.launches,
+                 "rs_encode": krs.encode_launches}
 
 
 def rs_phase(card: str, dev) -> tuple[dict, dict, tuple]:
@@ -328,6 +334,100 @@ def rs_phase(card: str, dev) -> tuple[dict, dict, tuple]:
     return cases, times, t_bound
 
 
+def rs_encode_phase(card: str, dev) -> tuple[dict, tuple, tuple]:
+    """The RS encode kernel against its plain version on the card, byte for
+    byte, at the shape of every path that encodes: the UK and DE head-end
+    steps (8 muxes x 4 frames: 32,256 and 21,504 packets), the
+    hierarchical HP and LP streams (10,752 and 24,192), 2K one-frame
+    blocks (252 and 63 packets) and ragged counts (1, 3, 65 packets;
+    messages not 16-byte aligned), each with random, all-zero, all-0xFF
+    and TS packets (sync byte 0x47), with a synchronize after each case.
+    Then the kernel's time at the UK step's 32,256 packets by the
+    profiler, beside its bound and the plain version's time.  Returns
+    (the mismatching packets of each case, (kernel ms, plain ms), (bound
+    ms, what sets it))."""
+    import torch
+
+    from dvbt_tpu_torch import MODE_8K_UK, make_ts_packets
+    from dvbt_tpu_torch.coder_bench import profiler_ms
+    from dvbt_tpu_torch.kernels import rs as krs
+    from dvbt_tpu_torch.mode import DvbtMode
+    from dvbt_tpu_torch.ops import reed_solomon
+    from dvbt_tpu_torch.parallel.ring_bench import HIER_8K
+    from dvbt_tpu_torch.viterbi_bench import event_ms
+
+    gen = torch.Generator(device=dev).manual_seed(2029)
+    encode = reed_solomon.make_rs_encoder(dev)
+    plain = krs.make_rs_encoder_plain(dev)
+    kinds = {
+        "random": lambda lead: torch.randint(
+            0, 256, lead + (188,), generator=gen, dtype=torch.uint8,
+            device=dev),
+        "zeros": lambda lead: torch.zeros(lead + (188,), dtype=torch.uint8,
+                                          device=dev),
+        "all 0xFF": lambda lead: torch.full(lead + (188,), 0xFF,
+                                            dtype=torch.uint8, device=dev),
+        "TS packets": lambda lead: torch.as_tensor(make_ts_packets(
+            math.prod(lead), seed=5).reshape(lead + (188,)), device=dev),
+    }
+    de = DvbtMode("8k", "16qam", "2/3", "1/4")
+    shapes = {
+        "UK head-end step": (8, MODE_8K_UK.packets_per_block * 4),
+        "DE head-end step": (8, de.packets_per_block * 4),
+        **{f"8K alpha=2 {s.upper()} step":
+           (8, HIER_8K.stream_packets_per_block(s) * 4) for s in ("hp", "lp")},
+        "2K 64-QAM 2/3 frame": (1, DvbtMode("2k", "64qam",
+                                            "2/3").packets_per_block),
+        "2K QPSK 1/2 frame": (1, DvbtMode("2k", "qpsk",
+                                          "1/2").packets_per_block),
+        "1 packet": (1,), "3 packets": (3,), "65 packets": (65,),
+    }
+    cases = {}
+    for name, lead in shapes.items():
+        for kind, make in kinds.items():
+            msg = make(lead)
+            if name == "65 packets":      # a view 188 bytes in: not aligned
+                msg = torch.cat([msg[:1], msg]).reshape(-1)[188:].reshape(
+                    msg.shape)
+                require(msg.data_ptr() % 16 != 0, "the unaligned case is "
+                        "16-byte aligned")
+            got = encode(msg)
+            want = plain(msg)
+            torch.cuda.synchronize()
+            key = f"{name} {tuple(msg.shape)}, {kind}"
+            cases[key] = int((got != want).any(-1).sum())
+            require(got.shape == want.shape and cases[key] == 0,
+                    f"RS encode kernel at {key}: {cases[key]} packets "
+                    "differ from the plain version")
+    n_cases = len(cases)
+    print(f"[rs_encode] the RS encode kernel exact against its plain "
+          f"version in all {n_cases} cases ({card})", flush=True)
+
+    lead = shapes["UK head-end step"]
+    n_pk = math.prod(lead)
+    msg = kinds["random"](lead)
+    p1 = event_ms(lambda: plain(msg), 3)
+    a = profiler_ms(lambda: encode(msg), 100, "rs_encode_kernel")
+    b = profiler_ms(lambda: encode(msg), 100, "rs_encode_kernel")
+    events = event_ms(lambda: encode(msg), 100)
+    p2 = event_ms(lambda: plain(msg), 3)
+    torch.cuda.synchronize()
+    times = ((a + b) / 2, (p1 + p2) / 2)
+    # bytes: each message read and each codeword written once; operations:
+    # the LFSR's 188 x 16 GF multiply-adds a packet, one int32 operation
+    # each
+    t_bound = bound(n_pk * (188 + 204), n_pk * 188 * 16)
+    print(f"[time] RS encode kernel at {n_pk} packets: {times[0]:.4f} ms by "
+          f"the profiler (runs {a:.4f}, {b:.4f}; bound {t_bound[0]:.4f} ms, "
+          f"{t_bound[1]}; {t_bound[0] / times[0]:.1%} of it; events over "
+          f"back-to-back calls {events:.4f} ms), plain {times[1]:.3f} ms "
+          f"({card})", flush=True)
+    require(times[0] <= 10 * t_bound[0],
+            f"the RS encode kernel takes {times[0]:.4f} ms, over 10x its "
+            f"bound {t_bound[0]:.4f} ms")
+    return cases, times, t_bound
+
+
 def k1_on_receiver_metrics(dev) -> tuple[int, float]:
     """K1 against its plain version on the soft receiver's own inputs: two
     MODE_8K_UK blocks (one frame each) through Annex B P1 and AWGN at 20
@@ -425,9 +525,10 @@ def ber_phase(card: str, dev) -> dict:
                     f" > {PER_MAX}")
     n = len(BER_POINTS) * len(BER_SEEDS) * BER_BLOCKS
     require(launches == {"viterbi_punct": n, "byte_coder": n,
-                         "rs_decode": n},
+                         "rs_decode": n, "rs_encode": 2 * n},
             f"the BER path did not launch K1, K2 and the RS decoder once a "
-            f"block: {launches}")
+            f"block and the RS encoder twice (TX, pre-RS errors): "
+            f"{launches}")
     print(f"[ber] {len(results)} points in {secs:.2f} s with the build, "
           f"launches {launches}", flush=True)
     # planted faults, seed 0: the other demap (must fall outside BER_TOL),
@@ -508,9 +609,10 @@ def hierarchical_phase(card: str, dev) -> dict:
 
     outs, launches = counted(run)
     require(launches == {"viterbi_punct": 2 * n_steps,
-                         "byte_coder": 2 * n_steps, "rs_decode": 2 * n_steps},
+                         "byte_coder": 2 * n_steps, "rs_decode": 2 * n_steps,
+                         "rs_encode": 2 * n_steps},
             f"the hierarchical step did not launch K1, K2 and the RS decoder "
-            f"twice: {launches}")
+            f"and encoder twice: {launches}")
     for k, key in enumerate(("rs_uncorrectable", "lp_rs_uncorrectable")):
         got = np.concatenate([ts[k].cpu().numpy() for ts, _ in outs], axis=1)
         want = sent[k].transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
@@ -555,7 +657,7 @@ def hierarchical_phase(card: str, dev) -> dict:
         require(r["lp_per"] >= 0.99, f"the LP stream decoded at 6 dB: {r}")
     n = 2 * HIER_BER_BLOCKS * len(HIER_BER_SEEDS)
     require(launches2 == {"viterbi_punct": n, "byte_coder": n,
-                          "rs_decode": n},
+                          "rs_decode": n, "rs_encode": 2 * n},
             f"the 2K hierarchical point's launches: {launches2}")
     # planted fault, seed 0: hard metrics where soft are expected
     r = ber_sweep.run_point(mode2, 6.0, HIER_BER_BLOCKS, demap="hard",
@@ -614,9 +716,9 @@ def validation_phase(card: str, dev) -> tuple[dict, dict, dict]:
             f"mode grid: {len(green)}/25 green: {results}")
     n = sum(2 * len(m.streams) for _, m in mode_grid_hw.GRID)
     require(grid_launches == {"viterbi_punct": n, "byte_coder": n,
-                              "rs_decode": n},
-            f"the mode grid did not launch K1, K2 and the RS decoder once a "
-            f"block and stream: {grid_launches}")
+                              "rs_decode": n, "rs_encode": n},
+            f"the mode grid did not launch K1, K2 and the RS decoder and "
+            f"encoder once a block and stream: {grid_launches}")
     # every recorded call through the kernel, as the grid made it, and its
     # plain version: the calls of one shape stacked on the mux axis into
     # one plain call (its rows are independent; each plain call is a few
@@ -656,9 +758,9 @@ def validation_phase(card: str, dev) -> tuple[dict, dict, dict]:
                 f"ber_curves' rule over seeds {BER_SEEDS}: {line}")
     n = sum(p[2] for p in ber_hw.POINTS) * len(BER_SEEDS)
     require(ber_launches == {"viterbi_punct": n, "byte_coder": n,
-                             "rs_decode": n},
-            f"ber_hw did not launch K1, K2 and the RS decoder once a block: "
-            f"{ber_launches}")
+                             "rs_decode": n, "rs_encode": 2 * n},
+            f"ber_hw did not launch K1, K2 and the RS decoder once a block "
+            f"and the RS encoder twice: {ber_launches}")
     print(f"[ber_hw] {len(lines)} points within ber_curves' rule "
           f"(spread_k {ber_curves.SPREAD_K}, floor {ber_curves.REL_FLOOR}) "
           f"over seeds {BER_SEEDS} in {time.perf_counter() - t0:.2f} s; "
@@ -863,7 +965,8 @@ def streaming_phase(card: str, dev, mode=None, hier=None,
     print(f"[stream] tracked: {json.dumps(tracked)} ({card})", flush=True)
     require(tracked_launches["viterbi_punct"] > 0
             and tracked_launches["byte_coder"] > 0
-            and tracked_launches["rs_decode"] > 0,
+            and tracked_launches["rs_decode"] > 0
+            and tracked_launches["rs_encode"] > 0,
             f"the tracked variant's launches: {tracked_launches}")
     prof = profile_slice._stream(dev, card, frames, mode)
     print(f"[time] tracked block ({frames} frames, pipeline=4), profiled "
@@ -1004,6 +1107,7 @@ def bench_phase(card: str, dev) -> dict:
     kcoder.launches = 0
     kvit.launches = 0
     krs.launches = 0
+    krs.encode_launches = 0
     t0 = time.time()
     graphed = bench.make_step(mode, dev, n_mux, n_frames, graph=True)
     t_capture = time.time() - t0
@@ -1028,10 +1132,10 @@ def bench_phase(card: str, dev) -> dict:
     got, want = carried(graphed), carried(eager)
     torch.cuda.synchronize()
     launches = {"byte_coder": kcoder.launches, "viterbi_punct": kvit.launches,
-                "rs_decode": krs.launches}
+                "rs_decode": krs.launches, "rs_encode": krs.encode_launches}
     require(graphed.captured == bench.CAPTURED_LAUNCHES,
-            f"the captured step did not launch K1, K2 and the RS decoder "
-            f"once each: {graphed.captured}")
+            f"the captured step did not launch K1, K2 and the RS decoder and "
+            f"encoder once each: {graphed.captured}")
     require(all(n > 0 for n in launches.values()),
             f"the bench's step did not launch every kernel: {launches}")
     for s, (g_out, e_out) in enumerate(zip(got, want)):
@@ -1359,6 +1463,7 @@ def main() -> None:
 
     # --- 3b. the RS decoder against its plain version, and its time ------
     rs_cases, rs_times, rs_bound = rs_phase(card_line(), dev)
+    enc_cases, enc_times, enc_bound = rs_encode_phase(card_line(), dev)
 
     # --- 4. transmitter against the golden 8K snapshot -------------------
     want = np.load(ROOT / "tests" / "golden" / "tx_8k_64qam_23.npz")
@@ -1391,6 +1496,7 @@ def main() -> None:
     kcoder.launches = 0
     kvit.launches = 0
     krs.launches = 0
+    krs.encode_launches = 0
     outs, bad, taus = [], [], []
     for s in range(n_steps):
         tst, iq = tx(tst, packets[s])
@@ -1400,12 +1506,13 @@ def main() -> None:
         taus.append(met["timing_tau"].cpu().numpy())
     torch.cuda.synchronize()
     launches = {"coder": kcoder.launches, "viterbi": kvit.launches,
-                "rs_decode": krs.launches}
+                "rs_decode": krs.launches, "rs_encode": krs.encode_launches}
     require(launches["coder"] > 0 and launches["viterbi"] > 0,
             f"the main path did not launch both kernels: {launches}")
-    require(launches["rs_decode"] == launches["viterbi"] == n_steps,
-            f"the main path did not launch K1 and the RS decoder once a "
-            f"step: {launches}")
+    require(launches["rs_decode"] == launches["viterbi"]
+            == launches["rs_encode"] == n_steps,
+            f"the main path did not launch K1 and the RS decoder and encoder "
+            f"once a step: {launches}")
     out = np.concatenate(outs, axis=1)                    # (mux, pk, 188)
     flat_sent = sent.transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
     require(out.shape == flat_sent.shape, f"TS shape {out.shape}")
@@ -1591,8 +1698,10 @@ def main() -> None:
                 + k3_out.numel())
     k3_ops = viterbi_ops(*k3_shape)
     times["rs_decode"] = rs_times["noiseless"]
+    times["rs_encode"] = enc_times
     bounds = {
         "rs_decode": rs_bound,
+        "rs_encode": enc_bound,
         "viterbi": bound(k1_bytes, k1_ops, PACKED16_OPS_S),
         "coder": bound(stream.numel() + k2_out.numel() + state0.numel(),
                        k2_out.numel() * 5 / 32),
@@ -1611,7 +1720,8 @@ def main() -> None:
     # each kernel's launches on each path, every path counted alone
     by_path = {"slice": {"viterbi_punct": launches["viterbi"],
                          "byte_coder": launches["coder"],
-                         "rs_decode": launches["rs_decode"]},
+                         "rs_decode": launches["rs_decode"],
+                         "rs_encode": launches["rs_encode"]},
                "block_path": blk_launches, "ber": ber_launches,
                **hier_launches, **stream_launches, **valid_launches,
                **dryrun_launches, "bench": bench_launches}
@@ -1645,6 +1755,8 @@ def main() -> None:
                  rs_cases),
          "ms_8_errors": rs_times["8 errors"][0],
          "plain_ms_8_errors": rs_times["8 errors"][1]},
+        entry("rs_encode", "rs_encode", "dvbt_tpu_torch/csrc/rs.cu", None,
+              launches["rs_encode"], max(enc_cases.values()), enc_cases),
     ]
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in

@@ -102,10 +102,11 @@ MODES = {"8k64qam23": MODE_8K_UK, "2kqpsk12": MODE_2K_QPSK}
 REALTIME_MSPS = 64 / 7          # one mux in real time, Msamples/s
 PACKET_SEED = 7
 GRAPH_WARMUP_STEPS = 2          # eager steps on a side stream before capture
-# each kernel's launches in the captured step of one stream: K2 codes it,
-# K1 and the RS decoder decode it, once each; a hierarchical step launches
-# each once a stream (``captured_launches``)
-CAPTURED_LAUNCHES = {"byte_coder": 1, "viterbi_punct": 1, "rs_decode": 1}
+# each kernel's launches in the captured step of one stream: the RS encoder
+# and K2 code it, K1 and the RS decoder decode it, once each; a
+# hierarchical step launches each once a stream (``captured_launches``)
+CAPTURED_LAUNCHES = {"byte_coder": 1, "viterbi_punct": 1, "rs_decode": 1,
+                     "rs_encode": 1}
 TRACKED_CFO = 0.31              # the tracked stream's carrier offset
 
 
@@ -181,7 +182,8 @@ class GraphStep:
             for _ in range(GRAPH_WARMUP_STEPS):
                 eager(tst, rst, packets)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = (kcoder.launches, kvit.launches, krs.launches)
+        before = (kcoder.launches, kvit.launches, krs.launches,
+                  krs.encode_launches)
         self.graph = torch.cuda.CUDAGraph()
         try:
             recording = (contextlib.nullcontext() if telemetry is None
@@ -198,11 +200,12 @@ class GraphStep:
                                f"graph failed: {e}") from e
         self.captured = {"byte_coder": kcoder.launches - before[0],
                          "viterbi_punct": kvit.launches - before[1],
-                         "rs_decode": krs.launches - before[2]}
+                         "rs_decode": krs.launches - before[2],
+                         "rs_encode": krs.encode_launches - before[3]}
         if self.captured != captured_launches(packets):
             raise RuntimeError(f"the captured step launched the kernels "
-                               f"{self.captured}, not K1, K2 and the RS "
-                               f"decoder once each"
+                               f"{self.captured}, not K1, K2, the RS "
+                               f"encoder and the RS decoder once each"
                                + (" a stream" if self._hier else ""))
 
     def __call__(self, tst: dict, rst: dict, packets):

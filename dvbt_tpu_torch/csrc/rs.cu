@@ -1,8 +1,8 @@
-// RS(204,188,T=8) decode (R9), EN 300 744 §4.3.2: one kernel, one launch a
-// call, each codeword decoded end to end on chip.
+// RS(204,188,T=8) decode (R9) and systematic encode (T2), EN 300 744
+// §4.3.2: one kernel each, one launch a call.
 //
-// Replaces no TPU kernel: the JAX package decodes with bit-sliced GF(2)
-// matmuls and log/exp gathers that XLA fuses.  The port's plain version
+// Decode replaces no TPU kernel: the JAX package decodes with bit-sliced
+// GF(2) matmuls and log/exp gathers that XLA fuses.  The port's plain version
 // (kernels/rs.py) issued ~1,200 small launches a call (16 unrolled
 // Berlekamp-Massey iterations, the Chien and Forney loops), and its int64
 // table gathers took half the head-end step on the H100.  The bound is the
@@ -30,6 +30,23 @@
 //     16-byte stores.
 // GF(2^8) products are exp[log a + log b] with log 0 = 510 and exp zero
 // from 510 on, so a zero factor needs no branch.
+//
+// Encode replaces no TPU kernel either: the JAX package encodes with
+// bit-sliced GF(2) matmuls in plain JAX.  The port's plain version gathers
+// a 16-byte row a message byte from a (position, byte) table through an
+// int64 index, pads, folds with XOR and concatenates: ~16 launches and
+// ~280 MB of HBM traffic a call at 32,256 packets, the largest stage of
+// the head-end step.  The bound is the messages read and the codewords
+// written once (392 bytes a packet).  One thread a packet, kThreads
+// packets a block, the decoder's layout turned around:
+//   - the block stages its run of messages (kThreads * 188 contiguous
+//     bytes, 16-byte loads) at a codeword's stride in shared memory, with
+//     the decoder's f * g(x) rows (its tables' first 4,096 bytes);
+//   - each thread computes m(x) * x^16 mod g(x) with the decoder's LFSR
+//     fed the message and the top coefficient: 188 steps of one table row,
+//     four funnel shifts and four XORs, and writes the 16 parity bytes
+//     after its message in the stage;
+//   - the block stores the staged codewords with 16-byte stores.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -228,6 +245,78 @@ rs_decode_kernel(const uint8_t* __restrict__ cw,
         sw[(wd / (kK / 4)) * (kN / 4) + wd % (kK / 4)];
 }
 
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rs_encode_kernel(const uint8_t* __restrict__ msg,
+                 const uint8_t* __restrict__ tables,
+                 uint8_t* __restrict__ cw, int64_t n_packets) {
+  __shared__ __align__(16) uint8_t fbs[kFbBytes];
+  __shared__ __align__(16) uint8_t stage[kThreads * kN];
+  const int64_t p0 = (int64_t)blockIdx.x * kThreads;
+  const int n = (int)(n_packets - p0 < kThreads ? n_packets - p0 : kThreads);
+  const int t = threadIdx.x;
+
+  const uint4* tab_src = reinterpret_cast<const uint4*>(tables);
+  for (int i = t; i < kFbBytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(fbs)[i] = tab_src[i];
+  // message word wd of the block goes to word wd % 47 of codeword wd / 47
+  uint32_t* sw = reinterpret_cast<uint32_t*>(stage);
+  const uint8_t* src = msg + p0 * kK;
+  const int len = n * kK;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    done = len & ~15;
+    const uint4* s16 = reinterpret_cast<const uint4*>(src);
+    for (int q = t; q < (len >> 4); q += kThreads) {
+      const uint4 v = s16[q];
+      const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int wd = 4 * q + j;
+        sw[(wd / (kK / 4)) * (kN / 4) + wd % (kK / 4)] = vw[j];
+      }
+    }
+  }
+  for (int i = done + t; i < len; i += kThreads)
+    stage[(i / kK) * kN + i % kK] = src[i];
+  __syncthreads();
+
+  if (t < n) {
+    uint32_t* c = sw + t * (kN / 4);     // 51 words apart, 51 odd: no
+    const uint4* fb = reinterpret_cast<const uint4*>(fbs);   // conflicts
+    // r(x) = m(x) * x^16 mod g(x), bytes as the decoder's remainder: byte
+    // m of (r0, r1, r2, r3) is the coefficient of x^(15 - m), and so
+    // codeword byte 188 + m.  Each step: f = m_i + r_15, r = r * x + f *
+    // (g(x) - x^16)
+    uint32_t r0 = 0, r1 = 0, r2 = 0, r3 = 0;
+#pragma unroll 3
+    for (int i = 0; i < kK / 4; ++i) {
+      const uint32_t word = c[i];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const uint4 f = fb[(r0 ^ (word >> (8 * b))) & 0xff];
+        r0 = __funnelshift_r(r0, r1, 8) ^ f.x;
+        r1 = __funnelshift_r(r1, r2, 8) ^ f.y;
+        r2 = __funnelshift_r(r2, r3, 8) ^ f.z;
+        r3 = (r3 >> 8) ^ f.w;
+      }
+    }
+    c[kK / 4] = r0;
+    c[kK / 4 + 1] = r1;
+    c[kK / 4 + 2] = r2;
+    c[kK / 4 + 3] = r3;
+  }
+  __syncthreads();
+
+  // the block's n codewords are contiguous: n * 204 bytes, a multiple of 4
+  uint8_t* dst = cw + p0 * kN;
+  const int n_words = n * (kN / 4);
+  const int n_quads = n_words >> 2;
+  for (int q = t; q < n_quads; q += kThreads)
+    reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(sw)[q];
+  for (int wd = 4 * n_quads + t; wd < n_words; wd += kThreads)
+    reinterpret_cast<uint32_t*>(dst)[wd] = sw[wd];
+}
+
 }  // namespace
 
 // One launch over n_packets > 0 codewords (..., 204) -> messages (..., 188),
@@ -243,5 +332,19 @@ extern "C" int dvbt_rs_decode(const void* cw, const void* tables, void* msg,
                      (cudaStream_t)cuda_stream>>>(
       (const uint8_t*)cw, (const uint8_t*)tables, (uint8_t*)msg,
       (int32_t*)n_corr, (uint8_t*)bad, n_packets);
+  return (int)cudaGetLastError();
+}
+
+// One launch over n_packets > 0 messages (..., 188) -> systematic codewords
+// (..., 204).  tables (decode's, of which the first 4,096 bytes are read) and
+// cw must be 16-byte aligned (the wrapper's own tensors); msg need not be.
+extern "C" int dvbt_rs_encode(const void* msg, const void* tables, void* cw,
+                              int64_t n_packets, void* cuda_stream) {
+  if (n_packets <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n_packets + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  rs_encode_kernel<<<(unsigned)blocks, kThreads, 0,
+                     (cudaStream_t)cuda_stream>>>(
+      (const uint8_t*)msg, (const uint8_t*)tables, (uint8_t*)cw, n_packets);
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,7 @@ _SIGNATURES = {
     "dvbt_viterbi_punct": [_P, _P, _P, *[_I] * 13, _P, _P],
     "dvbt_viterbi_depunct": [_P, _P, _P, _P, _P, _P, *[_I] * 9, _P, _P],
     "dvbt_rs_decode": [_P, _P, _P, _P, _P, _I, _P],
+    "dvbt_rs_encode": [_P, _P, _P, _I, _P],
     # K4, the halo ring (csrc/ring.cu); void** outputs are passed by byref
     "dvbt_ring_stream_ops": [_I, _P],
     "dvbt_ring_device_uuid": [_I, _P],

@@ -1,7 +1,8 @@
-"""RS(204,188,T=8) decode (R9): the CUDA kernel and its plain version.
+"""RS(204,188,T=8) decode (R9) and systematic encode (T2): the CUDA
+kernels and their plain versions.
 
-Replaces no TPU kernel: the JAX package decodes with bit-sliced GF(2)
-algebra that XLA fuses.  The plain version below, the port's decoder
+Replaces no TPU kernel: the JAX package decodes and encodes with bit-sliced
+GF(2) algebra that XLA fuses.  The plain decoder below, the port's decoder
 until the kernel, is GF(2^8) log/exp table gathers on int64 tensors:
 
 * syndromes are GF(2)-linear in the input bytes: one gather from a
@@ -22,8 +23,15 @@ algebra in registers and shared memory, to the same bytes, counts and
 flags, uncorrectable packets included.  It is bound by its 392 bytes of
 HBM traffic a packet.
 
-Dispatch is by tensor device only: CPU tensors take the plain version, CUDA
-tensors the kernel (or an error).  ``launches`` counts kernel launches.
+The plain encoder uses the syndromes' linearity the same way: parity is
+one gather from a (position, byte value) table of rem(x^(203-p) mod g)
+rows and an XOR reduction, then the message and parity are joined.  Its
+kernel divides m(x) * x^16 by g(x) in one thread a packet with the
+decoder's LFSR and table rows, in one launch, to the same bytes.
+
+Dispatch is by tensor device only: CPU tensors take the plain versions,
+CUDA tensors the kernels (or an error).  ``launches`` counts decode
+launches, ``encode_launches`` encode launches.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ LOG_ZERO = 510
 TABLE_BYTES = 256 * RS_2T + 1024 + 256 * 2
 
 launches = 0
+encode_launches = 0
 
 
 def _gf_mul_np(a, b) -> np.ndarray:
@@ -99,6 +108,28 @@ class _GF:
     def inv(self, a):
         """a^-1, with 0 -> 0 (callers mask it out)."""
         return torch.where(a == 0, 0, self.exp[(255 - self.log[a]) % 255])
+
+
+def make_rs_encoder_plain(device):
+    """Returns encode(msg): uint8 (..., 188) -> (..., 204) systematic."""
+    g = tables.rs_generator_poly()
+    # parity = XOR_p msg_p * rem(x^(203-p) mod g), coefficients high-first
+    rem = np.zeros((RS_N, RS_2T), np.int64)
+    cur = np.zeros(RS_2T, np.int64)
+    cur[-1] = 1                                      # x^0
+    for d in range(RS_N):
+        rem[d] = cur
+        lead = cur[0]                                # multiply by x
+        cur = np.concatenate([cur[1:], [0]])
+        if lead:
+            cur = cur ^ tables.gf_mul(g[1:], lead)
+    table = torch.as_tensor(_linear_table(rem[RS_N - 1 - np.arange(RS_K)]),
+                            device=device)
+
+    def encode(msg: torch.Tensor) -> torch.Tensor:
+        return torch.cat([msg, _linear_map(msg, table)], dim=-1)
+
+    return encode
 
 
 def make_rs_decoder_plain(device):
@@ -180,11 +211,13 @@ def make_rs_decoder_plain(device):
 
 
 _plain_decoder = functools.lru_cache(maxsize=None)(make_rs_decoder_plain)
+_plain_encoder = functools.lru_cache(maxsize=None)(make_rs_encoder_plain)
 
 
 def decoder_tables(device) -> torch.Tensor:
-    """The kernel's tables, uint8 (TABLE_BYTES,) on ``device``.  Make them
-    before a CUDA graph captures the decode: this copies host data."""
+    """The kernels' tables, uint8 (TABLE_BYTES,) on ``device`` (the encoder
+    reads the f * g(x) rows, the first 4,096 bytes).  Make them before a
+    CUDA graph captures the decode or encode: this copies host data."""
     exp, log = tables.gf_tables()
     g = tables.rs_generator_poly()                  # x^16's first
     feedback = _gf_mul_np(np.arange(256)[:, None], g[None, 1:])
@@ -196,27 +229,35 @@ def decoder_tables(device) -> torch.Tensor:
     return torch.as_tensor(blob, device=device)
 
 
+def _check_input(name: str, what: str, x: torch.Tensor, n: int,
+                 lut: torch.Tensor | None) -> None:
+    """Raise unless x is a contiguous uint8 (..., n) CPU or CUDA tensor and,
+    on CUDA, lut is decoder_tables on its device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: {what} on {x.device}; the kernel's wrapper "
+                         "takes CPU or CUDA tensors")
+    if x.dtype != torch.uint8:
+        raise TypeError(f"{name}: {what} must be uint8, not {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+    if x.dim() == 0 or x.shape[-1] != n:
+        raise ValueError(f"{name}: {what} {tuple(x.shape)} are not "
+                         f"(..., {n})")
+    if x.device.type == "cuda" and (
+            lut is None or lut.device != x.device
+            or lut.numel() != TABLE_BYTES or lut.data_ptr() % 16):
+        raise ValueError(f"{name}: the kernel needs decoder_tables on "
+                         f"{x.device}")
+
+
 def rs_decode(cw: torch.Tensor, lut: torch.Tensor | None = None):
     """RS decode of uint8 (..., 204) codewords -> (msg uint8 (..., 188),
     n_corrected int32 (...), uncorrectable bool (...)): the kernel on CUDA
     tensors (``lut``: ``decoder_tables`` on the same device), the
     plain version on CPU tensors."""
-    if cw.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rs_decode: codewords on {cw.device}; the decoder "
-                         "takes CPU or CUDA tensors")
-    if cw.dtype != torch.uint8:
-        raise TypeError(f"rs_decode: codewords must be uint8, not {cw.dtype}")
-    if not cw.is_contiguous():
-        raise ValueError("rs_decode: codewords must be contiguous")
-    if cw.dim() == 0 or cw.shape[-1] != RS_N:
-        raise ValueError(f"rs_decode: codewords {tuple(cw.shape)} are not "
-                         f"(..., {RS_N})")
+    _check_input("rs_decode", "codewords", cw, RS_N, lut)
     if cw.device.type == "cpu":
         return _plain_decoder(cw.device)(cw)
-    if lut is None or lut.device != cw.device \
-            or lut.numel() != TABLE_BYTES or lut.data_ptr() % 16:
-        raise ValueError(f"rs_decode: the kernel needs decoder_tables on "
-                         f"{cw.device}")
     lead = cw.shape[:-1]
     msg = torch.empty(lead + (RS_K,), dtype=torch.uint8, device=cw.device)
     n_corr = torch.empty(lead, dtype=torch.int32, device=cw.device)
@@ -232,3 +273,25 @@ def rs_decode(cw: torch.Tensor, lut: torch.Tensor | None = None):
     global launches
     launches += 1
     return msg, n_corr, bad
+
+
+def rs_encode(msg: torch.Tensor, lut: torch.Tensor | None = None):
+    """RS systematic encode of uint8 (..., 188) messages -> codewords uint8
+    (..., 204), message then parity: the kernel on CUDA tensors (``lut``:
+    ``decoder_tables`` on the same device), the plain version on CPU
+    tensors."""
+    _check_input("rs_encode", "messages", msg, RS_K, lut)
+    if msg.device.type == "cpu":
+        return _plain_encoder(msg.device)(msg)
+    cw = torch.empty(msg.shape[:-1] + (RS_N,), dtype=torch.uint8,
+                     device=msg.device)
+    n_packets = msg.numel() // RS_K
+    if n_packets == 0:
+        return cw
+    code = _build.library().dvbt_rs_encode(
+        msg.data_ptr(), lut.data_ptr(), cw.data_ptr(), n_packets,
+        torch.cuda.current_stream(msg.device).cuda_stream)
+    _build.check(code, "dvbt_rs_encode")
+    global encode_launches
+    encode_launches += 1
+    return cw

@@ -204,6 +204,6 @@ def test_launch_expectation_is_per_stream():
     one = torch.zeros(N_MUX, 8, 188, dtype=torch.uint8)
     assert bench.captured_launches(one) == bench.CAPTURED_LAUNCHES
     assert bench.CAPTURED_LAUNCHES == {"byte_coder": 1, "viterbi_punct": 1,
-                                       "rs_decode": 1}
+                                       "rs_decode": 1, "rs_encode": 1}
     assert bench.captured_launches((one, one)) == {
-        "byte_coder": 2, "viterbi_punct": 2, "rs_decode": 2}
+        "byte_coder": 2, "viterbi_punct": 2, "rs_decode": 2, "rs_encode": 2}

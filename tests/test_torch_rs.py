@@ -1,14 +1,19 @@
-"""The RS decoder's wrapper (kernels/rs.py) and the kernel's tables, on
-the CPU.  The kernel itself runs only on the card, where chip_smoke.py
-holds it byte for byte against the plain version; here the wrapper's
-dispatch and checks, and the algebra the kernel rests on: its tables, and
-that the remainder modulo g(x) gives the plain version's syndromes."""
+"""The RS decoder's and encoder's wrappers (kernels/rs.py) and the kernels'
+tables, on the CPU.  The kernels themselves run only on the card, where
+chip_smoke.py holds them byte for byte against the plain versions; here the
+wrappers' dispatch and checks, and the algebra the kernels rest on: their
+tables, that the remainder modulo g(x) gives the plain version's
+syndromes, and that the encoder's LFSR over the same table rows gives the
+plain encoder's and the JAX package's codewords."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dvbt_tpu.ops import reed_solomon as j_rs
 from dvbt_tpu_torch import tables
+from dvbt_tpu_torch.io.ts import make_ts_packets
 from dvbt_tpu_torch.kernels import rs as krs
 from dvbt_tpu_torch.ops import reed_solomon as rs
 
@@ -99,3 +104,78 @@ def test_remainder_gives_the_plain_syndromes():
     np.testing.assert_array_equal(S, S_plain)
     np.testing.assert_array_equal((r == 0).all(1), (S_plain == 0).all(1))
     assert (r == 0).all(1).sum() == 16          # the noiseless packets
+
+
+# 2K one-frame packet counts: 64-QAM 2/3 (252, so the kernel's last block of
+# 64 packets is ragged) and QPSK 1/2 (63, under one block)
+ENCODE_LEADS = [(252,), (2, 252), (63,)]
+ENCODE_KINDS = {
+    "random": lambda rng, lead: rng.integers(0, 256, lead + (188,),
+                                             dtype=np.uint8),
+    "zeros": lambda rng, lead: np.zeros(lead + (188,), np.uint8),
+    "all_ff": lambda rng, lead: np.full(lead + (188,), 0xFF, np.uint8),
+    "sync_packets": lambda rng, lead: make_ts_packets(
+        int(np.prod(lead)), seed=int(rng.integers(1 << 16))).reshape(
+            lead + (188,)),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_encoder():
+    """The JAX package's encoder, made once for the module."""
+    return j_rs.make_rs_encoder()
+
+
+def _encode_model(msg: np.ndarray) -> np.ndarray:
+    """The encode kernel's loop in numpy, a row a thread: 188 steps of
+    f = m_i + r_15 through decoder_tables' f * g(x) rows, r = r * x + row f;
+    the codeword is the message then r's bytes, x^15's first."""
+    feedback, _, _ = _table_parts()
+    flat = msg.reshape(-1, 188).astype(np.int64)
+    R = np.zeros((flat.shape[0], 16), np.int64)     # R[:, 0]: x^15
+    for i in range(188):
+        f = feedback[R[:, 0] ^ flat[:, i]]
+        R = np.concatenate([R[:, 1:], np.zeros_like(R[:, :1])], axis=1) ^ f
+    cw = np.concatenate([flat, R], axis=1).astype(np.uint8)
+    return cw.reshape(msg.shape[:-1] + (204,))
+
+
+@pytest.mark.parametrize("lead", ENCODE_LEADS, ids=str)
+@pytest.mark.parametrize("kind", list(ENCODE_KINDS))
+def test_encode_model_gives_the_plain_and_jax_codewords(kind, lead,
+                                                         jax_encoder):
+    rng = np.random.default_rng([len(kind), *lead])
+    msg = ENCODE_KINDS[kind](rng, lead)
+    got = _encode_model(msg)
+    assert got.shape == lead + (204,)
+    plain = krs.make_rs_encoder_plain("cpu")(torch.from_numpy(msg)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, np.asarray(jax_encoder(
+        jnp.asarray(msg))))
+    # a whole codeword divides by g(x): the decoder's remainder is zero
+    assert not krs.make_rs_decoder_plain("cpu")(
+        torch.from_numpy(got))[2].any()
+
+
+def test_cpu_encode_takes_the_plain_version():
+    msg = torch.as_tensor(np.random.default_rng(4).integers(
+        0, 256, (2, 9, 188), dtype=np.uint8))
+    before = krs.encode_launches
+    got = rs.make_rs_encoder("cpu")(msg)
+    assert krs.encode_launches == before == 0
+    assert got.dtype == torch.uint8 and got.shape == (2, 9, 204)
+    assert torch.equal(got, krs.make_rs_encoder_plain("cpu")(msg))
+    assert torch.equal(got[..., :188], msg)
+
+
+@pytest.mark.parametrize("what,make,error", [
+    ("int32", lambda m: m.to(torch.int32), TypeError),
+    ("non_contiguous", lambda m: m.t().contiguous().t(), ValueError),
+    ("meta_device", lambda m: m.to("meta"), ValueError),
+    ("last_dim_204", lambda m: torch.cat([m, m[:, :16]], -1), ValueError),
+    ("scalar", lambda m: m[0, 0], ValueError),
+])
+def test_the_encode_wrapper_rejects(what, make, error):
+    msg = make(torch.zeros(4, 188, dtype=torch.uint8))
+    with pytest.raises(error, match="^rs_encode: "):
+        rs.make_rs_encoder("cpu")(msg)
