@@ -43,10 +43,9 @@ stream with a delay and a 0.31-subcarrier CFO through pipeline=4, locked
 and byte-exact; the sample-clock loop held at 2 ppm (pipeline=0) and its
 limits read at 2 ppm with pipeline=4 and at 40 ppm; a checkpoint resume,
 byte-identical; AutoStreamingReceiver told only "8k" on a MODE_8K_UK and
-an 8K alpha=2 capture, each detected and byte-exact; the bench's tracked
-variant (1 mux x 8 frames a block, K1 and K2 also checked at that shape)
-with its hard checks and a profiled tracked block; the tx and rx apps
-through files.  Then
+an 8K alpha=2 capture, each detected and byte-exact; a profiled tracked
+block (1 mux x 8 frames, 0.31-subcarrier CFO, K1 and K2 also checked at
+that shape); the tx and rx apps through files.  Then
 timings (with the flagship step's device time per stage, hard and soft
 demap), and the parallel package: 4 rank processes on the one
 card (spawned, gloo between them) check K4, the halo ring over CUDA IPC,
@@ -59,9 +58,9 @@ one-frame blocks, equal to the single-process streaming chain; the K4 halo
 path equal to the send/recv one; the same three stages with the soft
 receiver and with the hierarchical configuration, three halos a step,
 each on both of K4's routes), and time K4 and the sharded step with
-either halo.  Then the flagship bench (dvbt_tpu_torch.bench): its step
-captured into one CUDA graph against the eager step over 4 carried steps,
-byte for byte, and a 2 s bench run whose line must pass its gates.  Last,
+either halo.  Then the graph step the benchmark drives
+(dvbt_tpu_torch.bench): the flagship step captured into one CUDA graph
+against the eager step over 4 carried steps, byte for byte.  Last,
 the validation tools (dvbt_tpu_torch.tools): the 25 modes of
 mode_grid_hw.GRID (2K constellation x rate at GI 1/4, a guard sweep, 8K
 spot modes, 2K alpha=4 and 8K alpha=2), 2 carried blocks each at 1 mux,
@@ -200,24 +199,17 @@ def doc_point(name: str, snr: float) -> dict:
 
 
 def counted(fn) -> tuple:
-    """(fn(), launches of K1, K2, the RS decoder and the RS encoder during
-    it): the counters set to 0 just before, read just after."""
+    """(fn(), a Counter of each kernel's launches during it): the
+    difference of the port's launch count across fn()."""
     import torch
 
-    from dvbt_tpu_torch.kernels import coder as kcoder
-    from dvbt_tpu_torch.kernels import rs as krs
-    from dvbt_tpu_torch.kernels import viterbi as kvit
+    from dvbt_tpu_torch.kernels import _build
 
     torch.cuda.synchronize()
-    kcoder.launches = 0
-    kvit.launches = 0
-    krs.launches = 0
-    krs.encode_launches = 0
+    before = _build.launches.copy()
     out = fn()
     torch.cuda.synchronize()
-    return out, {"viterbi_punct": kvit.launches,
-                 "byte_coder": kcoder.launches, "rs_decode": krs.launches,
-                 "rs_encode": krs.encode_launches}
+    return out, _build.launches - before
 
 
 def rs_phase(card: str, dev) -> tuple[dict, dict, tuple]:
@@ -803,16 +795,15 @@ def streaming_phase(card: str, dev, mode=None, hier=None,
     the CPU passes 2K modes): models.loopback.StreamingReceiver with
     pipeline=4 on a raw stream with a delay and CFO, then the sample-clock
     loop at STREAM_PPM (held) and its limits (read), a checkpoint resume,
-    AutoStreamingReceiver on a single-stream and an alpha=2 capture, the
-    bench's tracked variant with its hard checks and a profiled tracked
-    block, and the tx and rx apps through files.  Returns K1's and K2's
-    launches on the streaming drive and on the tracked variant."""
+    AutoStreamingReceiver on a single-stream and an alpha=2 capture, a
+    profiled tracked block, and the tx and rx apps through files.  Returns
+    each kernel's launches on the streaming drive."""
     import tempfile
 
     import numpy as np
     import torch
 
-    from dvbt_tpu_torch import MODE_8K_UK, bench, make_ts_packets
+    from dvbt_tpu_torch import MODE_8K_UK, make_ts_packets
     from dvbt_tpu_torch import profile_slice
     from dvbt_tpu_torch.io import ts as tsio
     from dvbt_tpu_torch.models import auto, channel
@@ -959,15 +950,7 @@ def streaming_phase(card: str, dev, mode=None, hier=None,
               f"): TS byte-exact over {n} packets"
               f"{', LP too' if m.hierarchical else ''}", flush=True)
 
-    # the bench's tracked variant, its hard checks, one profiled block
-    tracked, tracked_launches = counted(
-        lambda: bench.tracked_bench(mode, dev, frames=frames))
-    print(f"[stream] tracked: {json.dumps(tracked)} ({card})", flush=True)
-    require(tracked_launches["viterbi_punct"] > 0
-            and tracked_launches["byte_coder"] > 0
-            and tracked_launches["rs_decode"] > 0
-            and tracked_launches["rs_encode"] > 0,
-            f"the tracked variant's launches: {tracked_launches}")
+    # tracked blocks, one profiled
     prof = profile_slice._stream(dev, card, frames, mode)
     print(f"[time] tracked block ({frames} frames, pipeline=4), profiled "
           f"({profile_slice.PROFILED_STEPS} blocks, one trace): device busy "
@@ -1002,7 +985,7 @@ def streaming_phase(card: str, dev, mode=None, hier=None,
           f"equal to the input in {time.perf_counter() - t0:.1f} s; the "
           f"streaming phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return {"streaming": launches, "tracked": tracked_launches}
+    return {"streaming": launches}
 
 
 def parallel_phase(card: str) -> tuple[dict, dict]:
@@ -1056,10 +1039,16 @@ def parallel_phase(card: str) -> tuple[dict, dict]:
     steps = n_ranks * sharding.N_STEPS
     for v in res["variants"]:
         n_streams = 2 if v["name"] == "hierarchical" else 1
+        # 4 x steps: each stream's TX and RX in the mux-DP stage, both
+        # time-sharded stages and rank 0's streaming reference; 2 x (steps
+        # - 1): the halo state recomputed (K3 decode, RS re-encode) in
+        # both time-sharded stages on every block but the first
         want = {"ring_shift": (n_streams + 1) * steps,
                 "viterbi_depunct": n_streams * 2 * (steps - 1),
                 "viterbi_punct": n_streams * 4 * steps,
-                "byte_coder": n_streams * 4 * steps}
+                "byte_coder": n_streams * 4 * steps,
+                "rs_decode": n_streams * 4 * steps,
+                "rs_encode": n_streams * (4 * steps + 2 * (steps - 1))}
         print(f"[parallel] dryrun {v['name']} ({v['demap']} demap), K4 "
               f"waiting {v['waits']}: stages "
               f"{ {k: round(x['seconds'], 2) for k, x in v['dryrun'].items()} }"
@@ -1083,31 +1072,26 @@ def parallel_phase(card: str) -> tuple[dict, dict]:
             "bound_by": by, "library_ms": None}, by_path
 
 
-def bench_phase(card: str, dev) -> dict:
-    """Phase 8: the flagship bench (dvbt_tpu_torch.bench).  The step
-    captured into a CUDA graph and the eager step run BENCH_STEPS carried
-    steps from the same initial state and packets: TS, rs_uncorrectable
-    and every carried-state leaf byte-identical, the TS the packets sent.
-    Then bench.run for 2 s with its hard checks; prints its line.  Returns
-    each kernel's launches in one replay of the graph, and over the
-    carried steps (one capture and its replays, and the eager steps)."""
+def bench_phase(dev) -> tuple[dict, dict]:
+    """Phase 8: the graph step the benchmark drives (dvbt_tpu_torch.bench).
+    The flagship step captured into a CUDA graph and the eager step run
+    BENCH_STEPS carried steps from the same initial state and packets: TS,
+    rs_uncorrectable and every carried-state leaf byte-identical, the TS
+    the packets sent.  Returns each kernel's launches in one replay of the
+    graph, and over the carried steps (one capture and its replays, and
+    the eager steps)."""
     import numpy as np
     import torch
 
     from dvbt_tpu_torch import MODE_8K_UK, bench, make_ts_packets
-    from dvbt_tpu_torch.kernels import coder as kcoder
-    from dvbt_tpu_torch.kernels import rs as krs
-    from dvbt_tpu_torch.kernels import viterbi as kvit
+    from dvbt_tpu_torch.kernels import _build
     from dvbt_tpu_torch.models import rx as rxm
     from dvbt_tpu_torch.models import tx as txm
     from dvbt_tpu_torch.ops.outer_interleaver import DELAY_PACKETS
 
     mode, n_mux, n_frames = MODE_8K_UK, 8, 4
     torch.cuda.synchronize()
-    kcoder.launches = 0
-    kvit.launches = 0
-    krs.launches = 0
-    krs.encode_launches = 0
+    before = _build.launches.copy()
     t0 = time.time()
     graphed = bench.make_step(mode, dev, n_mux, n_frames, graph=True)
     t_capture = time.time() - t0
@@ -1131,13 +1115,12 @@ def bench_phase(card: str, dev) -> dict:
 
     got, want = carried(graphed), carried(eager)
     torch.cuda.synchronize()
-    launches = {"byte_coder": kcoder.launches, "viterbi_punct": kvit.launches,
-                "rs_decode": krs.launches, "rs_encode": krs.encode_launches}
+    launches = _build.launches - before
     require(graphed.captured == bench.CAPTURED_LAUNCHES,
-            f"the captured step did not launch K1, K2 and the RS decoder and "
-            f"encoder once each: {graphed.captured}")
-    require(all(n > 0 for n in launches.values()),
-            f"the bench's step did not launch every kernel: {launches}")
+            f"the captured step launched {graphed.captured}, not "
+            f"{bench.CAPTURED_LAUNCHES}")
+    require(launches.keys() == bench.CAPTURED_LAUNCHES.keys(),
+            f"the graph and eager steps launched {launches}")
     for s, (g_out, e_out) in enumerate(zip(got, want)):
         for (name, g), (_, e) in zip(g_out, e_out):
             require(g.dtype == e.dtype and g.shape == e.shape and torch.equal(
@@ -1158,17 +1141,7 @@ def bench_phase(card: str, dev) -> dict:
           f"{graphed.captured}; {BENCH_STEPS} carried steps byte-identical "
           f"to the eager step (TS, rs_uncorrectable, {n_leaves} state "
           f"leaves), TS the packets sent; launches {launches}", flush=True)
-    per_replay = dict(graphed.captured)
-    del graphed, eager, got, want
-
-    line = bench.run(mode, dev, n_mux=n_mux, n_frames=n_frames, seconds=2.0,
-                     warmup=3, graph=True, parity=True)
-    print(f"[bench] {json.dumps(line)} ({card})", flush=True)
-    require(line["coder_hw_parity"] and line["viterbi_hw_parity"]
-            and line["rs_uncorrectable_last_block"] == 0
-            and line["cuda_graph"] and line["block_samples"] == 18382848,
-            f"the bench's line fails its gates: {line}")
-    return per_replay, launches
+    return dict(graphed.captured), launches
 
 
 def main() -> None:
@@ -1188,7 +1161,6 @@ def main() -> None:
     from dvbt_tpu_torch.mode import SYMBOLS_PER_FRAME, DvbtMode
     from dvbt_tpu_torch.kernels import _build
     from dvbt_tpu_torch.kernels import coder as kcoder
-    from dvbt_tpu_torch.kernels import rs as krs
     from dvbt_tpu_torch.kernels import viterbi as kvit
     from dvbt_tpu_torch.models import flowgraph
     from dvbt_tpu_torch.models import rx as rxm
@@ -1257,8 +1229,8 @@ def main() -> None:
                                           dtype=np.uint8), device=dev)
     state0 = torch.zeros(8, 6, dtype=torch.uint8, device=dev)
     _, k2_out = kcoder.byte_coder(state0, stream, rate)
-    ref = bench.numpy_mother_code(np.unpackbits(stream[0].cpu().numpy()),
-                                  rate)
+    ref = coder_bench.numpy_mother_code(
+        np.unpackbits(stream[0].cpu().numpy()), rate)
     k2_cases["numpy mother-code reference, mux 0 of 8"] = int(np.abs(
         k2_out[0].cpu().numpy().astype(int) - ref.astype(int)).max())
     # the hierarchical configuration's two coders: 8K alpha=2, 4 frames,
@@ -1493,10 +1465,7 @@ def main() -> None:
     tst = txm.init_tx_state(mode, n_mux, dev)
     rst = rxm.init_rx_state(mode, n_mux, dev)
     torch.cuda.synchronize()
-    kcoder.launches = 0
-    kvit.launches = 0
-    krs.launches = 0
-    krs.encode_launches = 0
+    before = _build.launches.copy()
     outs, bad, taus = [], [], []
     for s in range(n_steps):
         tst, iq = tx(tst, packets[s])
@@ -1505,14 +1474,10 @@ def main() -> None:
         bad.append(met["rs_uncorrectable"].cpu().numpy())
         taus.append(met["timing_tau"].cpu().numpy())
     torch.cuda.synchronize()
-    launches = {"coder": kcoder.launches, "viterbi": kvit.launches,
-                "rs_decode": krs.launches, "rs_encode": krs.encode_launches}
-    require(launches["coder"] > 0 and launches["viterbi"] > 0,
-            f"the main path did not launch both kernels: {launches}")
-    require(launches["rs_decode"] == launches["viterbi"]
-            == launches["rs_encode"] == n_steps,
-            f"the main path did not launch K1 and the RS decoder and encoder "
-            f"once a step: {launches}")
+    launches = _build.launches - before
+    require(launches == {k: n_steps for k in bench.CAPTURED_LAUNCHES},
+            f"the main path did not launch K1, K2 and the RS decoder and "
+            f"encoder once a step: {launches}")
     out = np.concatenate(outs, axis=1)                    # (mux, pk, 188)
     flat_sent = sent.transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
     require(out.shape == flat_sent.shape, f"TS shape {out.shape}")
@@ -1561,13 +1526,8 @@ def main() -> None:
     blk_rx, blk_pk = flowgraph.make_block_receiver(mode, dev, n_cap, n_frames)
     blk_state = flowgraph.init_block_rx_state(mode, n_mux, dev)
     require(blk_pk == n_pk, f"block path packets {blk_pk} != {n_pk}")
-    torch.cuda.synchronize()
-    kvit.depunct_launches = 0
-    krs.launches = 0
-    _, blk_ts, blk_info = blk_rx(blk_state, capture)
-    torch.cuda.synchronize()
-    blk_launches = {"viterbi_depunct": kvit.depunct_launches,
-                    "rs_decode": krs.launches}
+    (_, blk_ts, blk_info), blk_launches = counted(
+        lambda: blk_rx(blk_state, capture))
     require(blk_launches == {"viterbi_depunct": 1, "rs_decode": 1},
             f"the block path did not launch K3 and the RS decoder once: "
             f"{blk_launches}")
@@ -1606,7 +1566,7 @@ def main() -> None:
     ber_launches = ber_phase(card, dev)
     hier_launches = hierarchical_phase(card, dev)
 
-    # --- 5e. the streaming receiver, its apps and the tracked bench -------
+    # --- 5e. the streaming receiver, its apps and a tracked block ---------
     stream_launches = streaming_phase(card, dev)
 
     # --- 6. timings ------------------------------------------------------
@@ -1673,8 +1633,8 @@ def main() -> None:
     # --- 7. parallel: 4 ranks on the card, K4 and the time-sharded path ---
     k4_entry, dryrun_launches = parallel_phase(card)
 
-    # --- 8. the flagship bench: the CUDA graph step ------------------------
-    per_replay, bench_launches = bench_phase(card, dev)
+    # --- 8. the CUDA graph step the benchmark drives ----------------------
+    per_replay, bench_launches = bench_phase(dev)
 
     # --- 9. the validation tools: the 25-mode grid and ber_hw's points -----
     # after every timing: with this phase before them, the profiler once
@@ -1718,13 +1678,9 @@ def main() -> None:
               flush=True)
 
     # each kernel's launches on each path, every path counted alone
-    by_path = {"slice": {"viterbi_punct": launches["viterbi"],
-                         "byte_coder": launches["coder"],
-                         "rs_decode": launches["rs_decode"],
-                         "rs_encode": launches["rs_encode"]},
-               "block_path": blk_launches, "ber": ber_launches,
-               **hier_launches, **stream_launches, **valid_launches,
-               **dryrun_launches, "bench": bench_launches}
+    by_path = {"slice": launches, "block_path": blk_launches,
+               "ber": ber_launches, **hier_launches, **stream_launches,
+               **valid_launches, **dryrun_launches, "bench": bench_launches}
 
     def entry(name, key, source, replaces, launches_, err, cases=None):
         e = {"name": name, "route": "cuda", "source": source,
@@ -1740,10 +1696,11 @@ def main() -> None:
 
     kernels = [
         entry("viterbi_punct", "viterbi", "dvbt_tpu_torch/csrc/viterbi.cu",
-              "dvbt_tpu/kernels/viterbi_pallas.py:238", launches["viterbi"],
+              "dvbt_tpu/kernels/viterbi_pallas.py:238",
+              launches["viterbi_punct"],
               k1_err, k1_cases),
         entry("byte_coder", "coder", "dvbt_tpu_torch/csrc/coder.cu",
-              "dvbt_tpu/kernels/coder_pallas.py:44", launches["coder"],
+              "dvbt_tpu/kernels/coder_pallas.py:44", launches["byte_coder"],
               k2_err, k2_cases),
         entry("viterbi_depunct", "viterbi_depunct",
               "dvbt_tpu_torch/csrc/viterbi.cu",

@@ -25,8 +25,11 @@ Layout:
   utils/    — bit packing, the puncture pattern, the (hp, lp) stream
               pairs of hierarchical modes, carried-state exchange with
               the JAX package
-  bench.py  — the flagship bench (``python3 -m dvbt_tpu_torch.bench``):
-              the TX -> RX step as one CUDA graph, bench.py's JSON line
+  bench.py  — the TX -> RX step as one CUDA graph (``GraphStep``), which
+              the benchmark drives: ``python3 -m benchmark.run --workload
+              <cell> --seed <n> --seconds <s> --trace <0|1>``, the cells
+              uk_headend_8mux, de_headend_soft_8mux, hier_headend_8mux
+              and uk_capture_8mux (BENCHMARK.json)
   profile_slice.py — per-stage device time of the flagship step
 
 Factories take an explicit ``device``, build their tables there once and

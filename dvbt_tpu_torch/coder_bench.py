@@ -11,7 +11,8 @@ is ``torch.profiler``'s (its own device time over back-to-back launches),
 and CUDA events over as many launches are reported beside it only to show
 the host's issue rate.  The plain version is timed by events.  It uses
 only the kernel's public wrappers, so the same file times any tree of the
-package that has them.  ``chip_smoke.py`` takes its K2 timing from here.
+package that has them.  ``chip_smoke.py`` takes its K2 timing from here,
+and holds K2 to ``numpy_mother_code``, an independent reference.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from . import MODE_8K_UK
 from .apps.device import card as device_card
 from .kernels import coder as kcoder
+from .utils import puncture
 from .viterbi_bench import event_ms
 
 RATE = MODE_8K_UK.code_rate
@@ -39,6 +41,20 @@ def inputs(n_mux: int, n_bytes: int, device, seed: int = 0):
     stream = torch.as_tensor(rng.integers(0, 256, (n_mux, n_bytes),
                                           dtype=np.uint8), device=device)
     return torch.zeros(n_mux, 6, dtype=torch.uint8, device=device), stream
+
+
+def numpy_mother_code(bits: np.ndarray, rate: str) -> np.ndarray:
+    """Independent reference of K2: x, y by convolution with G1=171o,
+    G2=133o taps over b[n..n-6] from a zero state, then Table-3
+    puncturing."""
+    n = len(bits)
+    g1 = np.array([1, 1, 1, 1, 0, 0, 1], np.uint8)
+    g2 = np.array([1, 0, 1, 1, 0, 1, 1], np.uint8)
+    x = np.convolve(bits, g1)[:n] % 2
+    y = np.convolve(bits, g2)[:n] % 2
+    pat = puncture.pattern(rate)
+    pairs = np.stack([x, y], axis=1).reshape(n // pat.period, 2 * pat.period)
+    return pairs[:, np.asarray(pat.order)].reshape(-1).astype(np.uint8)
 
 
 def profiler_ms(fn, reps: int, name: str = KERNEL_NAME) -> float:

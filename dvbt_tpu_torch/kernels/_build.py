@@ -7,10 +7,16 @@ link.  The library is built at first use into ``build/dvbt_tpu_torch/``
 beside the package, under a file name that carries a hash of the sources
 and flags, so a stale build is never loaded.  A failed build raises with nvcc's
 own error output: there is no fallback.
+
+``launches`` is the port's one launch count: each kernel wrapper counts
+its launches there under the kernel's name (``check``'s ``kernel``), and
+whoever wants the launches of a piece of work takes the difference of two
+copies of it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -52,6 +58,11 @@ _SIGNATURES = {
     "dvbt_error_string": [_INT],
 }
 _RESTYPES = {"dvbt_error_string": ctypes.c_char_p}
+
+# kernel name -> launches in this process: byte_coder (K2), viterbi_punct
+# (K1), viterbi_depunct (K3), rs_decode, rs_encode, ring_shift (K4, one a
+# call on either of its routes)
+launches: collections.Counter = collections.Counter()
 
 
 def sources() -> list[Path]:
@@ -122,8 +133,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(code: int, name: str) -> None:
-    """Raise if a launcher returned a CUDA error (cudaGetLastError)."""
+def check(code: int, name: str, kernel: str | None = None) -> None:
+    """Raise if the entry point ``name`` returned a CUDA error
+    (cudaGetLastError); else, where the call launched ``kernel``, count
+    one launch of it in ``launches``."""
     if code != 0:
         msg = library().dvbt_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
+    if kernel is not None:
+        launches[kernel] += 1

@@ -13,7 +13,8 @@ bound by those byte stores (one byte per coded bit, ~9.9 MB per 8K mux at
 rate 2/3).  The plain version below is the same contract in PyTorch.
 
 Dispatch is by tensor device only: CPU tensors take the plain version, CUDA
-tensors the kernel (or an error).  ``launches`` counts kernel launches.
+tensors the kernel (or an error).  ``_build.launches`` counts its
+launches as ``byte_coder``.
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ import torch
 from ..utils import bits as bitutils
 from ..utils import puncture
 from . import _build
-
-launches = 0
 
 
 def _next_state(stream: torch.Tensor) -> torch.Tensor:
@@ -90,7 +89,5 @@ def byte_coder(state6: torch.Tensor, stream: torch.Tensor,
         stream.data_ptr(), state6.data_ptr(), out.data_ptr(), n_mux, n_bytes,
         n_coded, period, keep, order_packed,
         torch.cuda.current_stream(stream.device).cuda_stream)
-    _build.check(code, "dvbt_byte_coder")
-    global launches
-    launches += 1
+    _build.check(code, "dvbt_byte_coder", kernel="byte_coder")
     return _next_state(stream), out

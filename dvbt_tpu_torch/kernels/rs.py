@@ -30,8 +30,8 @@ kernel divides m(x) * x^16 by g(x) in one thread a packet with the
 decoder's LFSR and table rows, in one launch, to the same bytes.
 
 Dispatch is by tensor device only: CPU tensors take the plain versions,
-CUDA tensors the kernels (or an error).  ``launches`` counts decode
-launches, ``encode_launches`` encode launches.
+CUDA tensors the kernels (or an error).  ``_build.launches`` counts
+their launches as ``rs_decode`` and ``rs_encode``.
 """
 
 from __future__ import annotations
@@ -51,9 +51,6 @@ RS_2T = 2 * RS_T
 # = 510, so that a product with a zero factor reads 0)
 LOG_ZERO = 510
 TABLE_BYTES = 256 * RS_2T + 1024 + 256 * 2
-
-launches = 0
-encode_launches = 0
 
 
 def _gf_mul_np(a, b) -> np.ndarray:
@@ -269,9 +266,7 @@ def rs_decode(cw: torch.Tensor, lut: torch.Tensor | None = None):
         cw.data_ptr(), lut.data_ptr(), msg.data_ptr(), n_corr.data_ptr(),
         bad.data_ptr(), n_packets,
         torch.cuda.current_stream(cw.device).cuda_stream)
-    _build.check(code, "dvbt_rs_decode")
-    global launches
-    launches += 1
+    _build.check(code, "dvbt_rs_decode", kernel="rs_decode")
     return msg, n_corr, bad
 
 
@@ -291,7 +286,5 @@ def rs_encode(msg: torch.Tensor, lut: torch.Tensor | None = None):
     code = _build.library().dvbt_rs_encode(
         msg.data_ptr(), lut.data_ptr(), cw.data_ptr(), n_packets,
         torch.cuda.current_stream(msg.device).cuda_stream)
-    _build.check(code, "dvbt_rs_encode")
-    global encode_launches
-    encode_launches += 1
+    _build.check(code, "dvbt_rs_encode", kernel="rs_encode")
     return cw

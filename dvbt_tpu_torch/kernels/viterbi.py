@@ -51,8 +51,8 @@ masks are honoured as given (an all-zero tail at stream start is an
 erasure), as in the jnp decoder ``dvbt_tpu/ops/viterbi.py``.
 
 Dispatch is by tensor device only: CPU tensors take the plain version, CUDA
-tensors the kernel (or an error).  ``launches`` counts K1's launches,
-``depunct_launches`` K3's.
+tensors the kernel (or an error).  ``_build.launches`` counts K1's
+launches as ``viterbi_punct``, K3's as ``viterbi_depunct``.
 """
 
 from __future__ import annotations
@@ -70,9 +70,6 @@ from . import _build
 
 N_STATES = 64
 SOFT_MAX = 15
-
-launches = 0           # K1 launches
-depunct_launches = 0   # K3 launches
 
 # H100 limits (CUDA programming guide, compute capability 9.0)
 SMEM_PER_SM = 228 * 1024       # an SM's shared memory for its blocks
@@ -310,9 +307,7 @@ def viterbi_punct(coded: torch.Tensor, tail: torch.Tensor, n_bits: int,
         n_bits, body, ov, period, keep, rank_packed, geo.grid, geo.warps,
         geo.window_bytes, geo.skip, geo.blocks_per_sm, _ptr(scratch),
         torch.cuda.current_stream(coded.device).cuda_stream)
-    _build.check(code, "dvbt_viterbi_punct")
-    global launches
-    launches += 1
+    _build.check(code, "dvbt_viterbi_punct", kernel="viterbi_punct")
     return out
 
 
@@ -390,9 +385,7 @@ def viterbi_depunct(x: torch.Tensor, y: torch.Tensor, xm: torch.Tensor,
         tail.data_ptr(), out.data_ptr(), n_mux, n_bits, body, ov, geo.grid,
         geo.warps, geo.window_bytes, geo.skip, geo.blocks_per_sm,
         _ptr(scratch), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "dvbt_viterbi_depunct")
-    global depunct_launches
-    depunct_launches += 1
+    _build.check(code, "dvbt_viterbi_depunct", kernel="viterbi_depunct")
     return out
 
 

@@ -39,7 +39,8 @@ all ranks call a ring in the same order, on the same stream.
 The plain version, ``ring_shift_plain``, is ``torch.distributed``
 send-to-the-right / receive-from-the-left (staged through the host for
 gloo).  Dispatch is by tensor device only: a CPU tensor takes the plain
-version, a CUDA tensor K4 (or an error).  ``launches`` counts K4 calls.
+version, a CUDA tensor K4 (or an error).  ``_build.launches`` counts K4
+calls as ``ring_shift``, one a call on either route.
 """
 
 from __future__ import annotations
@@ -55,7 +56,6 @@ import torch.distributed as dist
 from ..kernels import _build
 from . import multihost
 
-launches = 0
 DEFAULT_TIMEOUT_S = 60.0
 _HANDLE_BYTES = 64
 _UUID_BYTES = 16
@@ -317,7 +317,8 @@ class RingShift:
             _build.check(lib.dvbt_ring_shift(
                 src.data_ptr(), out.data_ptr(), n, self._base, self._left,
                 self._right, self.seq, int(self.timeout_s * 1e9),
-                self._err_dev, stream.cuda_stream), "dvbt_ring_shift")
+                self._err_dev, stream.cuda_stream), "dvbt_ring_shift",
+                kernel="ring_shift")
         else:
             begin, sent, end = (torch.cuda.Event() for _ in range(3))
             begin.record(stream)
@@ -328,11 +329,10 @@ class RingShift:
             sent.record(stream)
             _build.check(lib.dvbt_ring_receive(
                 out.data_ptr(), n, self._base, self.seq, self._err_dev,
-                stream.cuda_stream), "dvbt_ring_receive")
+                stream.cuda_stream), "dvbt_ring_receive",
+                kernel="ring_shift")
             end.record(stream)
             self._watchdog.watch(self.seq, begin, sent, end)
-        global launches
-        launches += 1
         return out.view(x.dtype).reshape(x.shape)
 
     def close(self) -> None:

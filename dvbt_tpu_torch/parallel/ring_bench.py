@@ -22,6 +22,7 @@ them.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -34,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from ..io.ts import make_ts_packets
+from ..kernels import _build
 from ..mode import MODE_8K_UK, DvbtMode
 from . import multihost, ring
 from . import time_sharding as tsh
@@ -258,33 +260,28 @@ def jax_test_payloads() -> dict:
 # the dryrun's variants beside the flagship's hard one: (name, mode, demap)
 VARIANTS = (("soft", MODE_8K_UK, "soft"),
             ("hierarchical", HIER_8K, "hard"))
-KERNELS = ("ring_shift", "viterbi_depunct", "viterbi_punct", "byte_coder")
 
 
 def _counted(fn) -> tuple:
-    """(fn(), each kernel's launches during it summed over the ranks):
-    every launch counter set to 0 just before, read just after."""
-    from ..kernels import coder as kcoder
-    from ..kernels import viterbi as kvit
-
+    """(fn(), each kernel's launches during it summed over the ranks): the
+    differences of ``_build.launches`` across fn(), gathered."""
     torch.cuda.synchronize()
-    ring.launches = kvit.depunct_launches = 0
-    kvit.launches = kcoder.launches = 0
+    before = _build.launches.copy()
     out = fn()
     torch.cuda.synchronize()
-    counts = multihost.all_reduce_sum(torch.tensor(
-        [ring.launches, kvit.depunct_launches, kvit.launches,
-         kcoder.launches]))
-    return out, dict(zip(KERNELS, map(int, counts)))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, dict(_build.launches - before))
+    return out, dict(sum(map(collections.Counter, ranks),
+                         collections.Counter()))
 
 
 def rank_main(rank: int, n_ranks: int, out_path: str) -> None:
     """One rank: K4 against its plain version on the JAX test's payloads
     and the flagship's halos and lone calls that must time out, on either
-    route, the dryrun at MODE_8K_UK with every launch counter set
-    to 0 just before it and summed over the ranks just after, the soft
-    and the hierarchical dryruns on each of K4's routes (counted the same
-    way), then the K4 and step timings.  Rank 0 writes the results as
+    route, the dryrun at MODE_8K_UK with each kernel's launches during
+    it summed over the ranks (``_counted``), the soft and the
+    hierarchical dryruns on each of K4's routes (counted the same way),
+    then the K4 and step timings.  Rank 0 writes the results as
     JSON to ``out_path``."""
     from . import sharding
 
@@ -334,7 +331,6 @@ def main() -> None:
         raise SystemExit("ring_bench: no CUDA device")
     n_cards = torch.cuda.device_count()
     n_ranks = args.ranks or (n_cards if n_cards >= 2 else 4)
-    from ..kernels import _build
     _build.library()
     out_path = _build.BUILD_DIR / f"ring_bench_{os.getpid()}.json"
     multihost.launch(rank_main, n_ranks, args=(str(out_path),),

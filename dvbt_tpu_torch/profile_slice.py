@@ -13,8 +13,8 @@ hierarchical configuration (parallel/ring_bench.HIER_8K: 8K 64-QAM
 alpha=2, HP 2/3 + LP 3/4).  With ``--blocks``, the block-level receive path
 (models/flowgraph.py) at the same mode and size: 8 raw captures (the
 transmitter's stream with a per-mux delay and CFO) from the synchronizer
-to the descrambler.  With ``--stream``, the bench's tracked variant: one
-mux of MODE_8K_UK, 8 frames a block, at a carrier offset of 0.31
+to the descrambler.  With ``--stream``, tracked blocks (``tracked_stream``):
+one mux of MODE_8K_UK, 8 frames a block, at a carrier offset of 0.31
 subcarrier, fed block by block to a locked StreamingReceiver
 (``pipeline=4``, ``metrics="min"``), ring, host copies and all.  Prints:
 
@@ -43,9 +43,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import MODE_8K_UK, bench, make_ts_packets
+from . import MODE_8K_UK, make_ts_packets
 from .utils.streams import join, split
 from .kernels import _build
+from .models import channel
 from .models import flowgraph
 from .models import loopback
 from .models import rx as rxm
@@ -57,6 +58,8 @@ from .apps.device import card as device_card
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PROFILED_STEPS = 5
+TRACKED_CFO = 0.31              # the tracked stream's carrier offset
+TRACKED_SEED = 7                # its packets' seed
 
 
 def _host_ms(fn, n: int) -> float:
@@ -200,15 +203,33 @@ def _blocks(dev, card: str) -> None:
     _profile(step, card, _build.BUILD_DIR / "blocks_trace.json")
 
 
+def tracked_stream(mode, device, n_frames: int, n_blocks: int) -> list:
+    """``n_blocks`` TX blocks of one mux (packets seeded with TRACKED_SEED)
+    at a carrier offset of TRACKED_CFO subcarrier whose phase runs on
+    across blocks: [complex64 numpy block]."""
+    tx, n_pk, n_samp = txm.make_transmitter(mode, device, n_frames)
+    tst = txm.init_tx_state(mode, 1, device)
+    pk = make_ts_packets(n_pk * n_blocks, seed=TRACKED_SEED)
+    blocks = []
+    for b in range(n_blocks):
+        tst, iq = tx(tst, torch.as_tensor(pk[b * n_pk:(b + 1) * n_pk],
+                                          device=device)[None])
+        phase0 = (2.0 * np.pi * TRACKED_CFO * (b * n_samp) / mode.fft_len
+                  ) % (2.0 * np.pi)
+        iq = channel.apply_cfo(iq, TRACKED_CFO, mode.fft_len, phase0=phase0)
+        blocks.append(iq[0].cpu().numpy())
+    return blocks
+
+
 def _stream(dev, card: str, frames: int = 8, mode=MODE_8K_UK) -> dict:
-    """Profiles tracked blocks (bench.tracked_stream: one mux, ``frames``
-    times the mode's frames per block, CFO 0.31) fed one at a time to a
-    locked StreamingReceiver with pipeline=4 and metrics="min"; returns
+    """Profiles tracked blocks (``tracked_stream``: one mux, ``frames``
+    times the mode's frames per block) fed one at a time to a locked
+    StreamingReceiver with pipeline=4 and metrics="min"; returns
     _profile's reading per block."""
     n_frames = mode.frames_per_block * frames
     n_warm, n_timed = 4, 8
-    _, _, blocks = bench.tracked_stream(
-        mode, dev, n_frames, n_warm + n_timed + PROFILED_STEPS)
+    blocks = tracked_stream(mode, dev, n_frames,
+                            n_warm + n_timed + PROFILED_STEPS)
     srx = loopback.StreamingReceiver(mode, dev, n_frames, pipeline=4,
                                      metrics="min")
     for b in blocks[:n_warm]:

@@ -5,16 +5,28 @@ signature that disagrees with the C function passes wrong arguments
 without an error.  These tests parse ``dvbt_tpu_torch/csrc/*.cu`` and hold
 every ``extern "C"`` entry point against ``kernels/_build.py``'s table, K2's
 per-rate template table against ``utils/puncture.pattern``, the halo
-ring's watchdog against fake events, and its choice of how to wait."""
+ring's watchdog against fake events, and its choice of how to wait.  The
+port's one launch count, ``_build.launches``, is the only one any module
+keeps, and a wrapper given CPU tensors runs its plain version and counts
+no launch."""
 
+import collections
 import ctypes
+import importlib
+import pkgutil
 import re
 import threading
 import time
 
+import numpy as np
 import pytest
+import torch
 
+import dvbt_tpu_torch
 from dvbt_tpu_torch.kernels import _build
+from dvbt_tpu_torch.kernels import coder as kcoder
+from dvbt_tpu_torch.kernels import rs as krs
+from dvbt_tpu_torch.kernels import viterbi as kvit
 from dvbt_tpu_torch.parallel import ring
 from dvbt_tpu_torch.utils import puncture
 
@@ -66,6 +78,56 @@ def test_coder_template_table_matches_puncture(rate):
     pat = puncture.pattern(rate)
     packed = sum(o << (4 * r) for r, o in enumerate(pat.order))
     assert table[(pat.period, pat.keep)] == packed
+
+
+def _wrapper_case(kernel: str) -> tuple:
+    """(wrapper, plain version, arguments on CPU tensors) of one kernel."""
+    rng = np.random.default_rng(7)
+
+    def u8(*shape, high=256):
+        return torch.from_numpy(rng.integers(0, high, shape, dtype=np.uint8))
+
+    tail = torch.zeros(2, 4, 96, dtype=torch.uint8)
+    if kernel == "byte_coder":
+        return (kcoder.byte_coder, kcoder.byte_coder_plain,
+                (torch.zeros(2, 6, dtype=torch.uint8), u8(2, 120), "3/4"))
+    if kernel == "viterbi_punct":
+        return (kvit.viterbi_punct, kvit.viterbi_punct_plain,
+                (u8(2, 2048, high=16), tail, 1024, "1/2", 256))
+    if kernel == "viterbi_depunct":
+        return (kvit.viterbi_depunct, kvit.viterbi_depunct_plain,
+                (u8(2, 1024, high=16), u8(2, 1024, high=16),
+                 u8(2, 1024, high=2), u8(2, 1024, high=2), tail, 256))
+    if kernel == "rs_decode":
+        return krs.rs_decode, krs.make_rs_decoder_plain("cpu"), (u8(3, 204),)
+    return krs.rs_encode, krs.make_rs_encoder_plain("cpu"), (u8(3, 188),)
+
+
+@pytest.mark.parametrize("kernel", ["byte_coder", "viterbi_punct",
+                                    "viterbi_depunct", "rs_decode",
+                                    "rs_encode"])
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch(kernel):
+    wrapper, plain, args = _wrapper_case(kernel)
+    before = _build.launches.copy()
+    got, want = wrapper(*args), plain(*args)
+    assert _build.launches == before
+    got, want = ((o,) if torch.is_tensor(o) else o for o in (got, want))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_only_build_keeps_a_launch_count():
+    """Every wrapper counts its launches in ``_build.launches``: no other
+    module of the port keeps a module-level count."""
+    found = []
+    for m in pkgutil.walk_packages(dvbt_tpu_torch.__path__,
+                                   "dvbt_tpu_torch."):
+        module = importlib.import_module(m.name)
+        found += [f"{m.name}.{name}" for name, v in vars(module).items()
+                  if "launches" in name.lower()
+                  and isinstance(v, (int, collections.Counter))]
+    assert found == ["dvbt_tpu_torch.kernels._build.launches"]
 
 
 class _Event:

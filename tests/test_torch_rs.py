@@ -14,6 +14,7 @@ import torch
 from dvbt_tpu.ops import reed_solomon as j_rs
 from dvbt_tpu_torch import tables
 from dvbt_tpu_torch.io.ts import make_ts_packets
+from dvbt_tpu_torch.kernels import _build
 from dvbt_tpu_torch.kernels import rs as krs
 from dvbt_tpu_torch.ops import reed_solomon as rs
 
@@ -41,10 +42,10 @@ def _table_parts():
 
 def test_cpu_tensors_take_the_plain_version():
     cw = _codewords(12, [0, 3, 8, 11], seed=1)
-    before = krs.launches
+    before = _build.launches["rs_decode"]
     got = rs.make_rs_decoder("cpu")(cw)
     want = krs.make_rs_decoder_plain("cpu")(cw)
-    assert krs.launches == before
+    assert _build.launches["rs_decode"] == before
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert got[0].dtype == torch.uint8 and got[1].dtype == torch.int32
@@ -160,9 +161,9 @@ def test_encode_model_gives_the_plain_and_jax_codewords(kind, lead,
 def test_cpu_encode_takes_the_plain_version():
     msg = torch.as_tensor(np.random.default_rng(4).integers(
         0, 256, (2, 9, 188), dtype=np.uint8))
-    before = krs.encode_launches
+    before = _build.launches["rs_encode"]
     got = rs.make_rs_encoder("cpu")(msg)
-    assert krs.encode_launches == before == 0
+    assert _build.launches["rs_encode"] == before == 0
     assert got.dtype == torch.uint8 and got.shape == (2, 9, 204)
     assert torch.equal(got, krs.make_rs_encoder_plain("cpu")(msg))
     assert torch.equal(got[..., :188], msg)

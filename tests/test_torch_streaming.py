@@ -124,7 +124,7 @@ def test_retimer_matches_jax(adj):
     np.testing.assert_allclose(got[0].numpy(), want, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("pipeline", [0, 2])
+@pytest.mark.parametrize("pipeline", [0, 2, 4])
 def test_streaming_receiver_matches_jax(pipeline):
     """Delay, 1.25 subcarriers of CFO (integer 1 + fractional 0.25) and a
     +40 ppm sample clock, so that the timing loop steps too."""

@@ -22,6 +22,7 @@ from dvbt_tpu.ops import outer_interleaver as j_oil
 from dvbt_tpu.ops import reed_solomon as j_rs
 from dvbt_tpu.ops import reference_signals as j_ref
 from dvbt_tpu.utils import bits as j_bits
+from dvbt_tpu_torch.coder_bench import numpy_mother_code
 from dvbt_tpu_torch.kernels import coder as t_kcoder
 from dvbt_tpu_torch.models import tx as t_tx
 from dvbt_tpu_torch.ops import bit_interleaver as t_bil
@@ -32,6 +33,7 @@ from dvbt_tpu_torch.ops import ofdm as t_ofdm
 from dvbt_tpu_torch.ops import outer_interleaver as t_oil
 from dvbt_tpu_torch.ops import reed_solomon as t_rs
 from dvbt_tpu_torch.ops import reference_signals as t_ref
+from dvbt_tpu_torch.ops import viterbi as t_vit
 from dvbt_tpu_torch.utils import bits as t_bits
 from dvbt_tpu_torch.utils.state import mode_from_jax as port_mode
 
@@ -126,6 +128,26 @@ def test_byte_coder_plain_matches_jax(rate):
             np.testing.assert_array_equal(got[m].numpy(), np.asarray(want_j))
             np.testing.assert_array_equal(st_t[m].numpy(), np.asarray(st_p[m]))
             np.testing.assert_array_equal(st_t[m].numpy(), np.asarray(st_j[m]))
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_plain_coder_and_decoder_hold_the_numpy_mother_code(rate):
+    """The inner coder equals the numpy mother code + puncture reference
+    (chip_smoke.py holds K2 to the same) on random bits, and the
+    receiver's decoder from its initial state decodes that coded stream,
+    noiseless at x15, to the info bytes.  13,440 bits are whole puncture
+    periods of every rate."""
+    rng = np.random.default_rng(42)
+    bits = rng.integers(0, 2, size=13440, dtype=np.uint8)
+    stream = np.packbits(bits)
+    coded_ref = numpy_mother_code(bits, rate)
+    _, coded = t_ic.make_inner_coder(len(stream), rate)(
+        t_ic.init_state(1, "cpu"), torch.from_numpy(stream)[None])
+    np.testing.assert_array_equal(coded[0].numpy(), coded_ref)
+    state = t_vit.init_state(1, t_vit.effective_overlap(rate), "cpu")
+    _, out = t_vit.make_viterbi_decoder(len(bits), rate)(
+        state, torch.from_numpy(coded_ref * np.uint8(15))[None])
+    np.testing.assert_array_equal(out[0].numpy(), stream)
 
 
 @pytest.mark.parametrize("rate", RATES)
