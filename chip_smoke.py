@@ -13,14 +13,19 @@ that are not a multiple of 16 bytes, the time-sharded shape, two blocks
 with the carried state, and a numpy reference of the mother code; both
 at the hierarchical shapes: 8K alpha=2 HP 2/3 and LP 3/4 at 1 and 4
 frames, 2K alpha=2 HP 1/2 and LP 3/4; K1 also on the soft receiver's own
-CSI-weighted metrics under Annex B P1 at 20 dB; K3 at each stream's
+CSI-weighted metrics under Annex B P1 at 20 dB, where the whole receiver's
+TS must equal that of a receiver whose demap stage is the plain version;
+K3 at each stream's
 time-sharded halo shape; and the RS decoder, byte for byte with its
 messages, counts and flags, at every receive path's packet count and odd
 ones, noiseless, with 1-8 and 9-16 byte errors a packet and a mix, then
 its time at the flagship step's packets, noiseless and with 8 errors;
 and the RS encoder, byte for byte, at every transmit path's packet count,
 2K frames and odd ones, on random, all-zero, all-0xFF and TS packets, then
-its time at the flagship step's packets),
+its time at the flagship step's packets; and the demap kernel at the
+flagship step's 8 x 272 symbol rows, UK hard and hierarchical alpha=2 hard
+exact on cells at 20 dB and on the decision boundaries, DE soft with CSI
+within one level on a stated share, then its times),
 checks the 8K transmitter against the golden snapshot, then drives the
 flagship slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32; 8 muxes x 4
 frames per step) TX -> RX and checks that every mux returns its
@@ -142,6 +147,11 @@ TRACKED_FRAMES = 8
 # the RS decoder's error classes: (fewest, most) byte errors a packet
 RS_ERRORS = {"noiseless": (0, 0), "1-8 errors": (1, 8),
              "9-16 errors": (9, 16), "mix 0-16": (0, 16)}
+# the soft demap kernel sums each row's |H|^2 in another order than
+# torch.mean, so a metric on a rounding boundary may move one level: the
+# share of metrics that may differ from the plain version's
+DEMAP_SOFT_SHARE = 1e-4
+DEMAP_ROWS = (8, 4 * 68)   # the flagship step's muxes and symbols
 
 
 def card_line() -> str:
@@ -420,16 +430,128 @@ def rs_encode_phase(card: str, dev) -> tuple[dict, tuple, tuple]:
     return cases, times, t_bound
 
 
+def demap_phase(card: str, dev) -> tuple[dict, dict, dict]:
+    """The demap kernel (the receiver's demap_deinterleave stage) against
+    its plain version on the card at the flagship step's shape, 8 muxes x
+    272 symbols: UK hard (8K 64-QAM), hierarchical alpha=2 hard (HP and LP
+    out of one launch) and DE soft with CSI (8K 16-QAM).  Inputs: random
+    cells through a 4-tap channel per mux with AWGN at 20 dB, equalized by
+    the true channel; the hard cases also on cells at the decision
+    boundaries (round half to even).  Hard metrics must be exact; soft
+    ones within one level on at most DEMAP_SOFT_SHARE of the metrics.
+    Then each case's kernel time by the profiler beside its bytes bound
+    and the plain version's time by events.  Returns (each case's largest
+    |difference| and share of differing metrics, (kernel ms, plain ms) a
+    setup, (bound ms, what sets it) a setup)."""
+    import torch
+
+    from dvbt_tpu_torch import MODE_8K_UK
+    from dvbt_tpu_torch.coder_bench import profiler_ms
+    from dvbt_tpu_torch.kernels import demap as kdemap
+    from dvbt_tpu_torch.mode import DvbtMode
+    from dvbt_tpu_torch.ops import mapper
+    from dvbt_tpu_torch.parallel.ring_bench import HIER_8K
+    from dvbt_tpu_torch.viterbi_bench import event_ms
+
+    n_mux, n_sym = DEMAP_ROWS
+    gen = torch.Generator(device=dev).manual_seed(2030)
+    setups = {"UK hard": (MODE_8K_UK, "hard"),
+              "hier alpha=2 hard": (HIER_8K, "hard"),
+              "DE soft CSI": (DvbtMode("8k", "16qam", "2/3", "1/4"), "soft")}
+
+    def noisy(mode):
+        """(X, H): equalized cells at 20 dB through a 4-tap channel."""
+        K = mode.n_carriers
+        pts = torch.as_tensor(mode.constellation_table().astype("complex64"),
+                              device=dev)
+        cells = pts[torch.randint(0, pts.numel(), (n_mux, n_sym, K),
+                                  generator=gen, device=dev)]
+        k = torch.arange(K, device=dev, dtype=torch.float32)
+        delay = torch.rand(n_mux, 4, generator=gen, device=dev) * 64
+        gain = torch.randn(n_mux, 4, 2, generator=gen, device=dev)
+        gain = torch.complex(gain[..., 0], gain[..., 1]) / 2
+        H = (gain[:, :, None] * torch.polar(
+            torch.ones_like(delay[:, :, None] * k),
+            -2 * math.pi * delay[:, :, None] * k / mode.fft_len)).sum(1)
+        H = H[:, None].expand(n_mux, n_sym, K).contiguous()
+        nz = torch.randn(n_mux, n_sym, K, 2, generator=gen, device=dev)
+        noise = torch.complex(nz[..., 0], nz[..., 1]) * math.sqrt(0.01 / 2)
+        return (cells * H + noise) / H, H
+
+    def boundaries(mode):
+        """Cells whose axes sit on the hard demapper's decision
+        boundaries, |z| = (2 n + 1 + alpha) / scale, and on 0."""
+        scale, alpha, m, _, _ = mapper._axis_tables(mode)
+        lv = torch.arange(-1, m, device=dev, dtype=torch.float32)
+        edges = torch.where(lv < 0, 0.0, (2 * lv + 1 + alpha) / scale)
+        pick = torch.randint(0, lv.numel(), (n_mux, n_sym, mode.n_carriers,
+                                             2), generator=gen, device=dev)
+        sign = torch.randint(0, 2, pick.shape, generator=gen, device=dev)
+        z = edges[pick] * (1 - 2 * sign)
+        return torch.complex(z[..., 0], z[..., 1]).contiguous(), None
+
+    cases, times, bounds = {}, {}, {}
+    for name, (mode, demap) in setups.items():
+        kernel = kdemap.make_demap_deinterleave(mode, dev, demap)
+        plain = kdemap.make_demap_deinterleave_plain(mode, dev, demap)
+        kinds = {"20 dB": noisy(mode)}
+        if demap == "hard":
+            kinds["boundaries"] = boundaries(mode)
+        for kind, (X, H) in kinds.items():
+            got, want = kernel(X, H), plain(X, H)
+            torch.cuda.synchronize()
+            require([g.shape for g in got] == [w.shape for w in want],
+                    f"demap {name} {kind}: shapes {[g.shape for g in got]}")
+            diff = torch.cat([(g.int() - w.int()).abs().reshape(-1)
+                              for g, w in zip(got, want)])
+            share = float((diff > 0).double().mean())
+            key = f"{name}, {kind}"
+            cases[key] = {"max_abs_err": int(diff.max()), "share": share}
+            print(f"[demap] {key}: {len(got)} stream(s), "
+                  f"{diff.numel()} metrics, {int((diff > 0).sum())} differ "
+                  f"(share {share:.3g}, limit "
+                  f"{0 if demap == 'hard' else DEMAP_SOFT_SHARE}), largest "
+                  f"|difference| {int(diff.max())} ({card})", flush=True)
+            if demap == "hard":
+                require(share == 0, f"the demap kernel at {key} differs "
+                                    "from its plain version")
+            else:
+                require(int(diff.max()) <= 1 and share <= DEMAP_SOFT_SHARE,
+                        f"the demap kernel at {key}: share {share}, largest "
+                        f"|difference| {int(diff.max())}")
+        X, H = kinds["20 dB"]
+        p1 = event_ms(lambda: plain(X, H), 3)
+        a = profiler_ms(lambda: kernel(X, H), 100, "demap_kernel")
+        b = profiler_ms(lambda: kernel(X, H), 100, "demap_kernel")
+        p2 = event_ms(lambda: plain(X, H), 3)
+        torch.cuda.synchronize()
+        times[name] = ((a + b) / 2, (p1 + p2) / 2)
+        # bytes: the carriers (and the channel estimate, soft) read once,
+        # every stream's metrics written once
+        n_out = sum(g.numel() for g in kernel(X, H))
+        bounds[name] = bound(X.numel() * 8 * (2 if demap == "soft" else 1)
+                             + n_out, 0)
+        print(f"[time] demap kernel, {name}, {n_mux} x {n_sym} rows: "
+              f"{times[name][0]:.4f} ms by the profiler (runs {a:.4f}, "
+              f"{b:.4f}; bound {bounds[name][0]:.4f} ms, {bounds[name][1]}; "
+              f"{bounds[name][0] / times[name][0]:.1%} of it), plain "
+              f"{times[name][1]:.3f} ms ({card})", flush=True)
+    return cases, times, bounds
+
+
 def k1_on_receiver_metrics(dev) -> tuple[int, float]:
     """K1 against its plain version on the soft receiver's own inputs: two
     MODE_8K_UK blocks (one frame each) through Annex B P1 and AWGN at 20
     dB into the CSI-weighted soft receiver, whose K1 calls are recorded
     (metrics, carried tail) and replayed through K1 and the plain version.
-    Returns the largest |difference| and the share of graded metrics (not
-    0 or 15)."""
+    The same blocks also go through a receiver whose demap stage is the
+    plain version: its TS, flags and corrections must equal the kernel
+    receiver's byte for byte.  Returns the largest |difference| and the
+    share of graded metrics (not 0 or 15)."""
     import torch
 
     from dvbt_tpu_torch import MODE_8K_UK, make_ts_packets
+    from dvbt_tpu_torch.kernels import demap as kdemap
     from dvbt_tpu_torch.kernels import viterbi as kvit
     from dvbt_tpu_torch.models import channel
     from dvbt_tpu_torch.models import rx as rxm
@@ -438,11 +560,18 @@ def k1_on_receiver_metrics(dev) -> tuple[int, float]:
     mode = MODE_8K_UK
     tx, n_pk, _ = txm.make_transmitter(mode, dev)
     rx, _, _ = rxm.make_receiver(mode, dev, demap="soft", metrics="min")
+    make = kdemap.make_demap_deinterleave
+    kdemap.make_demap_deinterleave = kdemap.make_demap_deinterleave_plain
+    try:
+        rx_plain, _, _ = rxm.make_receiver(mode, dev, demap="soft",
+                                           metrics="min")
+    finally:
+        kdemap.make_demap_deinterleave = make
     taps = channel.annex_b_taps("P1")
     gen = torch.Generator(device=dev).manual_seed(2027)
     tst = txm.init_tx_state(mode, 1, dev)
     rst = rxm.init_rx_state(mode, 1, dev)
-    seen = []
+    seen, blocks = [], []
     kernel = kvit.viterbi_punct
 
     def record(coded, tail, n_bits, rate, body):
@@ -454,12 +583,24 @@ def k1_on_receiver_metrics(dev) -> tuple[int, float]:
         for b in range(2):
             tst, iq = tx(tst, torch.as_tensor(make_ts_packets(
                 n_pk, seed=40 + b), device=dev)[None])
-            rst, _, _ = rx(rst, channel.awgn(
-                gen, channel.multipath(iq, taps), 20.0))
+            blocks.append(channel.awgn(gen, channel.multipath(iq, taps),
+                                       20.0))
+            rst, ts, met = rx(rst, blocks[-1])
+            blocks[-1] = (blocks[-1], ts, met)
     finally:
         kvit.viterbi_punct = kernel
     require(len(seen) == 2, f"the soft receiver called K1 {len(seen)} "
                             "times over 2 blocks")
+    rst = rxm.init_rx_state(mode, 1, dev)
+    for b, (iq, ts, met) in enumerate(blocks):
+        (rst, ts_p, met_p), launches = counted(lambda: rx_plain(rst, iq))
+        require(launches.get("demap", 0) == 0,
+                f"the plain receiver launched the demap kernel: {launches}")
+        require(torch.equal(ts, ts_p) and all(
+            torch.equal(met[k], met_p[k])
+            for k in ("rs_uncorrectable", "rs_corrected")),
+                f"the soft receiver's TS or RS flags of block {b} differ "
+                "between the demap kernel and its plain version")
     err, graded = 0, []
     for blk, (coded, tail, n_bits, rate, body) in enumerate(seen):
         got = kernel(coded, tail, n_bits, rate, body)
@@ -517,10 +658,10 @@ def ber_phase(card: str, dev) -> dict:
                     f" > {PER_MAX}")
     n = len(BER_POINTS) * len(BER_SEEDS) * BER_BLOCKS
     require(launches == {"viterbi_punct": n, "byte_coder": n,
-                         "rs_decode": n, "rs_encode": 2 * n},
-            f"the BER path did not launch K1, K2 and the RS decoder once a "
-            f"block and the RS encoder twice (TX, pre-RS errors): "
-            f"{launches}")
+                         "rs_decode": n, "rs_encode": 2 * n, "demap": n},
+            f"the BER path did not launch K1, K2, the demap and the RS "
+            f"decoder once a block and the RS encoder twice (TX, pre-RS "
+            f"errors): {launches}")
     print(f"[ber] {len(results)} points in {secs:.2f} s with the build, "
           f"launches {launches}", flush=True)
     # planted faults, seed 0: the other demap (must fall outside BER_TOL),
@@ -602,9 +743,9 @@ def hierarchical_phase(card: str, dev) -> dict:
     outs, launches = counted(run)
     require(launches == {"viterbi_punct": 2 * n_steps,
                          "byte_coder": 2 * n_steps, "rs_decode": 2 * n_steps,
-                         "rs_encode": 2 * n_steps},
+                         "rs_encode": 2 * n_steps, "demap": n_steps},
             f"the hierarchical step did not launch K1, K2 and the RS decoder "
-            f"and encoder twice: {launches}")
+            f"and encoder twice and the demap once: {launches}")
     for k, key in enumerate(("rs_uncorrectable", "lp_rs_uncorrectable")):
         got = np.concatenate([ts[k].cpu().numpy() for ts, _ in outs], axis=1)
         want = sent[k].transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
@@ -649,7 +790,8 @@ def hierarchical_phase(card: str, dev) -> dict:
         require(r["lp_per"] >= 0.99, f"the LP stream decoded at 6 dB: {r}")
     n = 2 * HIER_BER_BLOCKS * len(HIER_BER_SEEDS)
     require(launches2 == {"viterbi_punct": n, "byte_coder": n,
-                          "rs_decode": n, "rs_encode": 2 * n},
+                          "rs_decode": n, "rs_encode": 2 * n,
+                          "demap": n // 2},
             f"the 2K hierarchical point's launches: {launches2}")
     # planted fault, seed 0: hard metrics where soft are expected
     r = ber_sweep.run_point(mode2, 6.0, HIER_BER_BLOCKS, demap="hard",
@@ -708,9 +850,11 @@ def validation_phase(card: str, dev) -> tuple[dict, dict, dict]:
             f"mode grid: {len(green)}/25 green: {results}")
     n = sum(2 * len(m.streams) for _, m in mode_grid_hw.GRID)
     require(grid_launches == {"viterbi_punct": n, "byte_coder": n,
-                              "rs_decode": n, "rs_encode": n},
+                              "rs_decode": n, "rs_encode": n,
+                              "demap": 2 * len(mode_grid_hw.GRID)},
             f"the mode grid did not launch K1, K2 and the RS decoder and "
-            f"encoder once a block and stream: {grid_launches}")
+            f"encoder once a block and stream, the demap once a block: "
+            f"{grid_launches}")
     # every recorded call through the kernel, as the grid made it, and its
     # plain version: the calls of one shape stacked on the mux axis into
     # one plain call (its rows are independent; each plain call is a few
@@ -750,9 +894,10 @@ def validation_phase(card: str, dev) -> tuple[dict, dict, dict]:
                 f"ber_curves' rule over seeds {BER_SEEDS}: {line}")
     n = sum(p[2] for p in ber_hw.POINTS) * len(BER_SEEDS)
     require(ber_launches == {"viterbi_punct": n, "byte_coder": n,
-                             "rs_decode": n, "rs_encode": 2 * n},
-            f"ber_hw did not launch K1, K2 and the RS decoder once a block "
-            f"and the RS encoder twice: {ber_launches}")
+                             "rs_decode": n, "rs_encode": 2 * n,
+                             "demap": n},
+            f"ber_hw did not launch K1, K2, the demap and the RS decoder "
+            f"once a block and the RS encoder twice: {ber_launches}")
     print(f"[ber_hw] {len(lines)} points within ber_curves' rule "
           f"(spread_k {ber_curves.SPREAD_K}, floor {ber_curves.REL_FLOOR}) "
           f"over seeds {BER_SEEDS} in {time.perf_counter() - t0:.2f} s; "
@@ -864,10 +1009,10 @@ def streaming_phase(card: str, dev, mode=None, hier=None,
     n = _stream_check(reports, pk, n_pk, srx.block_samples, STREAM_DELAY,
                       0.0, "pipeline=4")
     require(launches["viterbi_punct"] == launches["rs_decode"]
-            == len(reports),
-            f"the streaming drive launched K1 {launches['viterbi_punct']} "
-            f"and the RS decoder {launches['rs_decode']} times for "
-            f"{len(reports)} blocks")
+            == launches["demap"] == len(reports),
+            f"the streaming drive launched K1 {launches['viterbi_punct']}, "
+            f"the RS decoder {launches['rs_decode']} and the demap "
+            f"{launches['demap']} times for {len(reports)} blocks")
     print(f"[stream] {mode.transmission} {mode.constellation} "
           f"{mode.code_rate}, {STREAM_BLOCKS} one-frame blocks, delay "
           f"{STREAM_DELAY}, CFO {STREAM_CFO}, chunks of {STREAM_CHUNK}, "
@@ -1042,8 +1187,9 @@ def parallel_phase(card: str) -> tuple[dict, dict]:
         # 4 x steps: each stream's TX and RX in the mux-DP stage, both
         # time-sharded stages and rank 0's streaming reference; 2 x (steps
         # - 1): the halo state recomputed (K3 decode, RS re-encode) in
-        # both time-sharded stages on every block but the first
-        want = {"ring_shift": (n_streams + 1) * steps,
+        # both time-sharded stages on every block but the first (its
+        # demap is the plain composition); the demap once an RX call
+        want = {"ring_shift": (n_streams + 1) * steps, "demap": 4 * steps,
                 "viterbi_depunct": n_streams * 2 * (steps - 1),
                 "viterbi_punct": n_streams * 4 * steps,
                 "byte_coder": n_streams * 4 * steps,
@@ -1436,6 +1582,7 @@ def main() -> None:
     # --- 3b. the RS decoder against its plain version, and its time ------
     rs_cases, rs_times, rs_bound = rs_phase(card_line(), dev)
     enc_cases, enc_times, enc_bound = rs_encode_phase(card_line(), dev)
+    demap_cases, demap_times, demap_bounds = demap_phase(card_line(), dev)
 
     # --- 4. transmitter against the golden 8K snapshot -------------------
     want = np.load(ROOT / "tests" / "golden" / "tx_8k_64qam_23.npz")
@@ -1659,9 +1806,11 @@ def main() -> None:
     k3_ops = viterbi_ops(*k3_shape)
     times["rs_decode"] = rs_times["noiseless"]
     times["rs_encode"] = enc_times
+    times["demap"] = demap_times["UK hard"]
     bounds = {
         "rs_decode": rs_bound,
         "rs_encode": enc_bound,
+        "demap": demap_bounds["UK hard"],
         "viterbi": bound(k1_bytes, k1_ops, PACKED16_OPS_S),
         "coder": bound(stream.numel() + k2_out.numel() + state0.numel(),
                        k2_out.numel() * 5 / 32),
@@ -1714,6 +1863,14 @@ def main() -> None:
          "plain_ms_8_errors": rs_times["8 errors"][1]},
         entry("rs_encode", "rs_encode", "dvbt_tpu_torch/csrc/rs.cu", None,
               launches["rs_encode"], max(enc_cases.values()), enc_cases),
+        # ms and bound of the UK hard setup, every setup's beside them;
+        # each case's largest |difference| and share of differing metrics
+        {**entry("demap", "demap", "dvbt_tpu_torch/csrc/demap.cu", None,
+                 launches["demap"],
+                 max(c["max_abs_err"] for c in demap_cases.values()),
+                 demap_cases),
+         "ms_by_case": demap_times, "bound_ms_by_case": {
+             k: b[0] for k, b in demap_bounds.items()}},
     ]
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in

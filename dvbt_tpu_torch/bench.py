@@ -30,18 +30,23 @@ from .utils.telemetry import Recorder, stage
 
 GRAPH_WARMUP_STEPS = 2          # eager steps on a side stream before capture
 # each kernel's launches in the captured step of one stream: the RS encoder
-# and K2 code it, K1 and the RS decoder decode it, once each; a
-# hierarchical step launches each once a stream (``captured_launches``)
+# and K2 code it, the demap kernel demaps it, K1 and the RS decoder decode
+# it, once each; a hierarchical step launches each once a stream but the
+# demap, which writes both streams' metrics in one launch
+# (``captured_launches``)
 CAPTURED_LAUNCHES = {"byte_coder": 1, "viterbi_punct": 1, "rs_decode": 1,
-                     "rs_encode": 1}
+                     "rs_encode": 1, "demap": 1}
+ONCE_A_STEP = ("demap",)
 
 
 def captured_launches(packets) -> dict:
     """Each kernel's launches expected in the captured step that takes
     ``packets``: ``CAPTURED_LAUNCHES`` once a stream, so twice for a
-    hierarchical mode's (HP, LP) pair."""
+    hierarchical mode's (HP, LP) pair, but those in ``ONCE_A_STEP`` once
+    a step."""
     n = 2 if isinstance(packets, (tuple, list)) else 1
-    return {k: n * v for k, v in CAPTURED_LAUNCHES.items()}
+    return {k: v if k in ONCE_A_STEP else n * v
+            for k, v in CAPTURED_LAUNCHES.items()}
 
 
 def state_leaves(tx_state: dict, rx_state: dict) -> list:

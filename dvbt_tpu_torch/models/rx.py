@@ -4,9 +4,10 @@ Counterpart of dvbt_tpu/models/rx.py: FFT -> channel estimate
 (``chan_est="time"``: pilots combined over the 4-symbol pattern with a
 carried history; ``"freq"``: the current symbol's pilots only) +
 zero-forcing equalizer (unless ``equalize=False``) -> TPS decode and MER
-(``metrics="full"``) -> demap + cell deinterleave (``demap="hard"``: hard
+(``metrics="full"``) -> cell deinterleave + demap (``demap="hard"``: hard
 decisions as saturated metrics; ``"soft"``: max-log metrics weighted by
-the channel state |H|^2) -> bit deinterleave -> per stream: punctured
+the channel state |H|^2) + bit deinterleave, one kernel on the card
+(``kernels/demap.py``) -> per stream: punctured
 Viterbi (kernel K1) -> outer deinterleave -> RS decode -> descramble with
 the credible-phase latch.  Hierarchical modes decode both streams: of each
 cell's v deinterleaved bits, the first 2 go to HP and the rest to LP, each
@@ -23,9 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import demap as kdemap
 from ..mode import RS_PACKET, SYMBOLS_PER_FRAME, DvbtMode
 from ..ops import (
-    bit_interleaver,
     energy,
     mapper,
     ofdm,
@@ -117,54 +118,6 @@ def _make_stream_decoder(mode: DvbtMode, stream: str, n_blocks: int, device,
     return run, n_packets
 
 
-def make_stream_metrics(mode: DvbtMode, device, demap: str = "hard"):
-    """The K1 inputs of each stream from the equalized cells, as the
-    receiver computes them.  Returns metrics(cells, H=None, rows=slice(None),
-    hard=None) -> (bits_hp,) or, in hierarchical modes, (bits_hp, bits_lp),
-    each uint8 (n_mux, n_coded) soft metrics 0..15.
-
-    cells: the cell-deinterleaved equalized payload cells (n_mux, S, P) of
-    the symbol rows ``rows``; H: the channel estimate (n_mux, S0, K) over
-    every row, or None without equalization; hard: qdemap(cells) when the
-    caller already has it.  ``demap="hard"``: hard decisions as saturated
-    metrics {0, 15}; ``"soft"``: max-log metrics weighted by the channel
-    state |H|^2, normalized over each symbol's carriers and permuted like
-    the cells.  Of each cell's v bits the first 2 go to HP and the rest to
-    LP [EN300744 §4.3.4.1]."""
-    if demap not in ("hard", "soft"):
-        raise ValueError(f"demap={demap!r} is not 'hard' or 'soft'")
-    soft = demap == "soft"
-    if soft:
-        cell_dilv = reference_signals.make_cell_deinterleaver(mode, device)
-        soft_demap = mapper.make_soft_demapper(mode, device)
-        bit_dilv = bit_interleaver.make_soft_bit_deinterleaver(mode, device)
-    else:
-        qdemap = mapper.make_demapper(mode, device)
-        bit_dilv = bit_interleaver.make_bit_deinterleaver(mode, device,
-                                                          scale=15)
-
-    def metrics(cells: torch.Tensor, H: torch.Tensor | None = None,
-                rows: slice = slice(None), hard: torch.Tensor | None = None):
-        n = cells.shape[0]
-        if soft:
-            # CSI: noise after zero-forcing is amplified by 1/|H|^2, so
-            # faded carriers must speak softly
-            csi = None
-            if H is not None:
-                csi = H.abs() ** 2
-                csi = cell_dilv(csi / csi.mean(-1, keepdim=True))[:, rows]
-            bits = bit_dilv(soft_demap(cells, csi))
-        else:
-            bits = bit_dilv(qdemap(cells) if hard is None else hard)
-        if not mode.hierarchical:
-            return (bits.reshape(n, -1),)
-        grouped = bits.reshape(n, -1, mode.n_payload, mode.v)
-        return (grouped[..., :2].reshape(n, -1),
-                grouped[..., 2:].reshape(n, -1))
-
-    return metrics
-
-
 def make_receiver(mode: DvbtMode, device, n_frames: int | None = None,
                   equalize: bool = True, demap: str = "hard",
                   chan_est: str = "time", metrics: str = "full",
@@ -198,7 +151,6 @@ def make_receiver(mode: DvbtMode, device, n_frames: int | None = None,
     n_sym = n_frames * SYMBOLS_PER_FRAME
     n_samples = n_sym * mode.symbol_len
     full = metrics == "full"
-    soft = demap == "soft"
     time_est = chan_est == "time"
     hier = mode.hierarchical
 
@@ -211,7 +163,7 @@ def make_receiver(mode: DvbtMode, device, n_frames: int | None = None,
     tps_dec = reference_signals.make_tps_decoder(mode, device)
     qdemap = mapper.make_demapper(mode, device)
     qmap = mapper.make_mapper(mode, device)
-    stream_metrics = make_stream_metrics(mode, device, demap)
+    demap_dilv = kdemap.make_demap_deinterleave(mode, device, demap)
     hp_dec, n_hp = _make_stream_decoder(mode, "hp", n_blocks, device,
                                         measure_pre_rs)
     if hier:
@@ -243,15 +195,12 @@ def make_receiver(mode: DvbtMode, device, n_frames: int | None = None,
                 tps_bits, tps_frame = tps_dec(X.reshape(
                     n_mux, n_frames, SYMBOLS_PER_FRAME, -1))
         with stage("demap_deinterleave"):
-            # permute first and demap the payload cells only (the demap is
-            # elementwise, so it commutes with the cell permutation)
-            Xc = cell_dilv(X)
-            hard = qdemap(Xc) if full or not soft else None
-            bits = stream_metrics(Xc, H if equalize else None, hard=hard)
+            bits = demap_dilv(X, H if equalize else None)
         if full:
             # MER: error power of the equalized payload cells against their
             # hard decisions, over the whole block of each mux
-            p_hat = qmap(hard)
+            Xc = cell_dilv(X)
+            p_hat = qmap(qdemap(Xc))
             err = Xc - p_hat
             sig = (p_hat.abs() ** 2).sum((-2, -1))
             noise = (err.abs() ** 2).sum((-2, -1)).clamp_min(1e-12)

@@ -105,6 +105,17 @@ def make_demapper(mode: DvbtMode, device):
     return qam_demap
 
 
+def soft_tables(mode: DvbtMode):
+    """(((I levels, I levels^2 / 2), (Q levels, Q levels^2 / 2)), dmin2):
+    float32 (2^(v/2),) per axis, and the constellation's least squared
+    distance, of the soft demapper."""
+    c = mode.constellation_table().astype(np.complex64)
+    d2 = np.abs(c[:, None] - c[None, :]) ** 2
+    np.fill_diagonal(d2, np.inf)
+    axes = tuple((lv, lv * lv / np.float32(2)) for lv in _axis_levels(mode))
+    return axes, float(d2.min())
+
+
 def make_soft_demapper(mode: DvbtMode, device):
     """Max-log-MAP per-bit soft demapper, 4-bit quantized, CSI-weighted.
 
@@ -117,16 +128,10 @@ def make_soft_demapper(mode: DvbtMode, device):
     (optional, float32, broadcastable to y) scales the LLRs before
     quantization: after zero-forcing the noise on a carrier is amplified
     by 1/|H|^2, so the true LLR is the equalized one times |H|^2."""
-    c = mode.constellation_table().astype(np.complex64)
-    v = mode.v
-    h = v // 2
-    d2 = np.abs(c[:, None] - c[None, :]) ** 2
-    np.fill_diagonal(d2, np.inf)
-    dmin2 = float(d2.min())
-    axes = []
-    for lv in _axis_levels(mode):
-        axes.append((torch.as_tensor(lv, device=device),
-                     torch.as_tensor(lv * lv / np.float32(2), device=device)))
+    h = mode.v // 2
+    np_axes, dmin2 = soft_tables(mode)
+    axes = [tuple(torch.as_tensor(a, device=device) for a in pair)
+            for pair in np_axes]
 
     def axis_llr(z: torch.Tensor, levels, half_sq) -> list:
         """z (...,) -> [llr (...,)] of the axis' h bits, MSB first."""

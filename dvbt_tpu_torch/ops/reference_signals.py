@@ -208,13 +208,18 @@ def make_chan_tail_retimer(mode: DvbtMode, device):
     return retime
 
 
+def cell_deinterleaver_index(mode: DvbtMode) -> np.ndarray:
+    """(4, n_payload) carrier of each deinterleaved payload cell, by symbol
+    index mod 4: the payload carriers composed with the even/odd H(q)."""
+    t = _frame_tables(mode)
+    pair = si._perm_pair(mode, deinterleave=True)
+    return np.stack([t["data_idx"][p][pair[p % 2]] for p in range(4)])
+
+
 def make_cell_deinterleaver(mode: DvbtMode, device):
     """RX payload extraction fused with the symbol deinterleaver (R3+R5):
     f(cells) (..., 68k, K) -> (..., 68k, n_payload) deinterleaved."""
-    t = _frame_tables(mode)
-    pair = si._perm_pair(mode, deinterleave=True)
-    idx = np.stack([t["data_idx"][p][pair[p % 2]] for p in range(4)])
-    return _row_take(idx, device)
+    return _row_take(cell_deinterleaver_index(mode), device)
 
 
 def make_frame_adapter(mode: DvbtMode, device):

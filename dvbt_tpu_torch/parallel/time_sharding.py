@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..mode import OUTER_I, RS_PACKET, SYMBOLS_PER_FRAME, DvbtMode
+from ..kernels import demap as kdemap
 from ..kernels import viterbi as kvit
 from ..models import rx as rxm
 from ..models import tx as txm
@@ -135,7 +136,7 @@ def make_rx_state_from_halo(mode: DvbtMode, device, demap: str = "hard"):
     block; block_idx 0 means stream start (zero state).  ``demap`` must
     match the receiver the state feeds: the halo decode reproduces its
     metrics, the CSI-weighted soft ones with ``"soft"``."""
-    stream_metrics = rxm.make_stream_metrics(mode, device, demap)
+    stream_metrics = kdemap.make_stream_metrics(mode, device, demap)
     H = rx_halo_symbols(mode)
     n_blk_sym = mode.frames_per_block * SYMBOLS_PER_FRAME
 

@@ -25,8 +25,10 @@ import torch
 import dvbt_tpu_torch
 from dvbt_tpu_torch.kernels import _build
 from dvbt_tpu_torch.kernels import coder as kcoder
+from dvbt_tpu_torch.kernels import demap as kdemap
 from dvbt_tpu_torch.kernels import rs as krs
 from dvbt_tpu_torch.kernels import viterbi as kvit
+from dvbt_tpu_torch.mode import DvbtMode
 from dvbt_tpu_torch.parallel import ring
 from dvbt_tpu_torch.utils import puncture
 
@@ -100,12 +102,20 @@ def _wrapper_case(kernel: str) -> tuple:
                  u8(2, 1024, high=2), u8(2, 1024, high=2), tail, 256))
     if kernel == "rs_decode":
         return krs.rs_decode, krs.make_rs_decoder_plain("cpu"), (u8(3, 204),)
+    if kernel == "demap":
+        mode = DvbtMode("2k", "64qam", "2/3", alpha=2, code_rate_lp="3/4")
+        X, H = (torch.from_numpy(
+            (rng.standard_normal((2, 4, mode.n_carriers, 2)) @ [1, 1j])
+            .astype(np.complex64)) for _ in range(2))
+        return (kdemap.make_demap_deinterleave(mode, "cpu", "soft"),
+                kdemap.make_demap_deinterleave_plain(mode, "cpu", "soft"),
+                (X, H))
     return krs.rs_encode, krs.make_rs_encoder_plain("cpu"), (u8(3, 188),)
 
 
 @pytest.mark.parametrize("kernel", ["byte_coder", "viterbi_punct",
                                     "viterbi_depunct", "rs_decode",
-                                    "rs_encode"])
+                                    "rs_encode", "demap"])
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch(kernel):
     wrapper, plain, args = _wrapper_case(kernel)
     before = _build.launches.copy()

@@ -201,9 +201,13 @@ def test_a_non_hierarchical_step_holds_no_new_span():
 
 
 def test_launch_expectation_is_per_stream():
+    """Each coding kernel once a stream; the demap kernel once a step, one
+    launch for one stream and one for the (HP, LP) pair."""
     one = torch.zeros(N_MUX, 8, 188, dtype=torch.uint8)
     assert bench.captured_launches(one) == bench.CAPTURED_LAUNCHES
     assert bench.CAPTURED_LAUNCHES == {"byte_coder": 1, "viterbi_punct": 1,
-                                       "rs_decode": 1, "rs_encode": 1}
+                                       "rs_decode": 1, "rs_encode": 1,
+                                       "demap": 1}
     assert bench.captured_launches((one, one)) == {
-        "byte_coder": 2, "viterbi_punct": 2, "rs_decode": 2, "rs_encode": 2}
+        "byte_coder": 2, "viterbi_punct": 2, "rs_decode": 2, "rs_encode": 2,
+        "demap": 1}
