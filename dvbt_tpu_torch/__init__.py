@@ -19,7 +19,8 @@ Layout:
   models/   — make_transmitter / make_receiver (hard or soft demap, one
               stream or hierarchical HP + LP), batched over muxes, the
               channel models (AWGN, CFO, multipath, Annex B F1/P1) and
-              the block-level receive chain from a raw capture
+              the block-level receive chain from a raw capture (one
+              stream or hierarchical HP + LP)
   apps/     — ber_sweep (``python3 -m dvbt_tpu_torch.apps.ber_sweep``):
               BER / PER against SNR, the JAX app's JSON line
   utils/    — bit packing, the puncture pattern, the (hp, lp) stream

@@ -63,7 +63,6 @@ def make_stream_metrics(mode: DvbtMode, device, demap: str = "hard"):
 
     def metrics(cells: torch.Tensor, H: torch.Tensor | None = None,
                 rows: slice = slice(None)):
-        n = cells.shape[0]
         if soft:
             # CSI: noise after zero-forcing is amplified by 1/|H|^2, so
             # faded carriers must speak softly
@@ -74,13 +73,22 @@ def make_stream_metrics(mode: DvbtMode, device, demap: str = "hard"):
             bits = bit_dilv(soft_demap(cells, csi))
         else:
             bits = bit_dilv(qdemap(cells))
-        if not mode.hierarchical:
-            return (bits.reshape(n, -1),)
-        grouped = bits.reshape(n, -1, mode.n_payload, mode.v)
-        return (grouped[..., :2].reshape(n, -1),
-                grouped[..., 2:].reshape(n, -1))
+        return split_streams(mode, bits)
 
     return metrics
+
+
+def split_streams(mode: DvbtMode, bits: torch.Tensor) -> tuple:
+    """Bit-deinterleaved metrics (n_mux, ...) in coded order -> (bits_hp,)
+    or, in hierarchical modes, (bits_hp, bits_lp), each (n_mux, n_coded):
+    of each cell's v bits the first 2 go to HP and the rest to LP
+    [EN300744 §4.3.4.1]."""
+    n = bits.shape[0]
+    if not mode.hierarchical:
+        return (bits.reshape(n, -1),)
+    grouped = bits.reshape(n, -1, mode.n_payload, mode.v)
+    return (grouped[..., :2].reshape(n, -1),
+            grouped[..., 2:].reshape(n, -1))
 
 
 def make_demap_deinterleave_plain(mode: DvbtMode, device,
