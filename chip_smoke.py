@@ -25,7 +25,11 @@ and the RS encoder, byte for byte, at every transmit path's packet count,
 its time at the flagship step's packets; and the demap kernel at the
 flagship step's 8 x 272 symbol rows, UK hard and hierarchical alpha=2 hard
 exact on cells at 20 dB and on the decision boundaries, DE soft with CSI
-within one level on a stated share, then its times),
+within one level on a stated share, then its times; and the acquisition
+kernel at the capture cells' 8 x 409 8K symbols at 22 and 28 dB and at
+every transmission and guard, theta equal to the plain version's and to
+the true timing, cfo_frac within 1e-6 subcarrier, the same bits twice,
+then its time),
 checks the 8K transmitter against the golden snapshot, then drives the
 flagship slice (MODE_8K_UK: 8K, 64-QAM, rate 2/3, GI 1/32; 8 muxes x 4
 frames per step) TX -> RX and checks that every mux returns its
@@ -152,6 +156,15 @@ RS_ERRORS = {"noiseless": (0, 0), "1-8 errors": (1, 8),
 # share of metrics that may differ from the plain version's
 DEMAP_SOFT_SHARE = 1e-4
 DEMAP_ROWS = (8, 4 * 68)   # the flagship step's muxes and symbols
+# the acquisition kernel against its plain version: both sum in float64,
+# in other orders, so theta must be equal and cfo_frac within ACQ_CFO_TOL
+# subcarrier; at the capture cells' shape (ACQ_MUX captures of
+# ACQ_SYMBOLS 8K symbols, GI 1/32) at each of ACQ_SNRS dB, and at every
+# (transmission, guard) at the streaming receiver's one-frame capture for
+# 1 and ACQ_MUX captures
+ACQ_CFO_TOL = 1e-6
+ACQ_MUX, ACQ_SYMBOLS = 8, 409
+ACQ_SNRS = (22.0, 28.0)
 
 
 def card_line() -> str:
@@ -537,6 +550,116 @@ def demap_phase(card: str, dev) -> tuple[dict, dict, dict]:
               f"{bounds[name][0] / times[name][0]:.1%} of it), plain "
               f"{times[name][1]:.3f} ms ({card})", flush=True)
     return cases, times, bounds
+
+
+def ofdm_captures(mode, n_mux: int, n_samples: int, snr_db: float, gen,
+                  dev) -> tuple:
+    """(captures complex64 (n_mux, n_samples), delays (n_mux,)): OFDM
+    symbols of random QPSK carriers through the port's modulator, each
+    capture from its own delay in [0, L), turned by its own carrier offset
+    within +-4 subcarriers and phase, with AWGN at snr_db of its power."""
+    import torch
+
+    from dvbt_tpu_torch.ops import ofdm
+
+    L, N, K = mode.symbol_len, mode.fft_len, mode.n_carriers
+    n_sym = n_samples // L + 2
+    iq = torch.randint(0, 2, (n_mux, n_sym, K, 2), generator=gen,
+                       device=dev).to(torch.float32) * 2 - 1
+    stream = ofdm.make_ofdm_modulator(mode, dev)(
+        torch.complex(iq[..., 0], iq[..., 1]) / math.sqrt(2))
+    del iq
+    delay = torch.randint(0, L, (n_mux,), generator=gen, device=dev)
+    cap = torch.gather(stream, 1, delay[:, None]
+                       + torch.arange(n_samples, device=dev))
+    del stream
+    cfo = (torch.rand(n_mux, generator=gen, device=dev,
+                      dtype=torch.float64) * 2 - 1) * 4
+    phase = torch.rand(n_mux, generator=gen, device=dev,
+                       dtype=torch.float64) * 2 * math.pi
+    n = torch.arange(n_samples, device=dev, dtype=torch.float64)
+    cap = cap * torch.polar(torch.ones_like(n), 2 * math.pi * cfo[:, None]
+                            * n / N + phase[:, None]).to(torch.complex64)
+    sigma = (cap.abs().pow(2).mean(-1, keepdim=True)
+             / 10 ** (snr_db / 10)).sqrt()
+    noise = torch.randn(cap.shape, generator=gen, device=dev,
+                        dtype=torch.complex64)       # unit power
+    return (cap + sigma * noise).contiguous(), delay
+
+
+def acquire_phase(card: str, dev) -> tuple[dict, tuple, tuple]:
+    """The acquisition kernel (the synchronizer's ofdm_sym_acquisition
+    block) against its plain version on the card: at the capture cells'
+    shape (8 x 409 8K GI 1/32 symbols) at 22 and 28 dB, and at every
+    (transmission, guard) at the streaming receiver's one-frame capture for
+    1 and 8 captures; OFDM captures with their own delay, carrier offset
+    and phase.  theta must equal the plain version's and the true timing,
+    cfo_frac lie within ACQ_CFO_TOL of the plain version's; two calls give
+    the same bits; one call launches it once.  Then its time at the cells'
+    shape by the profiler (the fold and the pick summed) beside its bytes
+    bound and the plain version's by events.  Returns (each case's largest
+    |cfo_frac difference|, (kernel ms, plain ms), (bound ms, what sets
+    it))."""
+    import torch
+
+    from dvbt_tpu_torch.coder_bench import profiler_ms
+    from dvbt_tpu_torch.kernels import acquire as kacquire
+    from dvbt_tpu_torch.mode import DvbtMode
+    from dvbt_tpu_torch.ops import sync as syncop
+    from dvbt_tpu_torch.viterbi_bench import event_ms
+
+    gen = torch.Generator(device=dev).manual_seed(2031)
+    cell = DvbtMode("8k", "64qam", "2/3", "1/32")
+    setups = [(f"cells' shape, {snr:g} dB", cell, ACQ_MUX,
+               ACQ_SYMBOLS * cell.symbol_len, snr) for snr in ACQ_SNRS]
+    for t in ("2k", "8k"):
+        for g in ("1/4", "1/8", "1/16", "1/32"):
+            mode = DvbtMode(t, "qpsk", "1/2", g)
+            n = syncop.min_capture_samples(mode, 1)
+            setups += [(f"{t} {g}, {m} x {n}", mode, m, n, 22.0)
+                       for m in (1, ACQ_MUX)]
+    cases = {}
+    for name, mode, n_mux, n, snr in setups:
+        caps, delay = ofdm_captures(mode, n_mux, n, snr, gen, dev)
+        kernel = kacquire.make_symbol_acquisition(mode, n)
+        plain = kacquire.make_symbol_acquisition_plain(mode, n)
+        (th_k, cfo_k), launches = counted(lambda: kernel(caps))
+        th_p, cfo_p = plain(caps)
+        torch.cuda.synchronize()
+        require(dict(launches) == {"acquire": 1},
+                f"acquisition {name}: launches {dict(launches)}")
+        require(torch.equal(th_k, th_p), f"acquisition {name}: theta "
+                f"{th_k.tolist()} against the plain version's "
+                f"{th_p.tolist()}")
+        require(torch.equal(th_k.long(), (-delay) % mode.symbol_len),
+                f"acquisition {name}: theta {th_k.tolist()} for delays "
+                f"{delay.tolist()}")
+        err = float((cfo_k.double() - cfo_p.double()).abs().max())
+        require(err <= ACQ_CFO_TOL, f"acquisition {name}: cfo_frac off the "
+                                    f"plain version's by {err}")
+        cases[name] = err
+        print(f"[acquire] {name}: theta equal, cfo_frac within {err:.3g} "
+              f"(limit {ACQ_CFO_TOL:g}) ({card})", flush=True)
+        if name == setups[0][0]:
+            again = kernel(caps)
+            require(torch.equal(again[0], th_k) and torch.equal(
+                again[1].view(torch.int32), cfo_k.view(torch.int32)),
+                "acquisition: two calls differ")
+            cell_caps, cell_kernel, cell_plain = caps, kernel, plain
+        del caps
+    p1 = event_ms(lambda: cell_plain(cell_caps), 3)
+    runs = [sum(profiler_ms(lambda: cell_kernel(cell_caps), 50, k)
+                for k in ("acquire_fold_kernel", "acquire_pick_kernel"))
+            for _ in range(2)]
+    p2 = event_ms(lambda: cell_plain(cell_caps), 3)
+    times = (sum(runs) / 2, (p1 + p2) / 2)
+    bnd = bound(cell_caps.numel() * 8, 0)
+    print(f"[time] acquisition kernel, {ACQ_MUX} x {cell_caps.shape[-1]} "
+          f"samples: {times[0]:.4f} ms by the profiler (runs "
+          f"{runs[0]:.4f}, {runs[1]:.4f}; bound {bnd[0]:.4f} ms, {bnd[1]}; "
+          f"{bnd[0] / times[0]:.1%} of it), plain {times[1]:.3f} ms, the same "
+          f"bits twice ({card})", flush=True)
+    return cases, times, bnd
 
 
 def k1_on_receiver_metrics(dev) -> tuple[int, float]:
@@ -1583,6 +1706,7 @@ def main() -> None:
     rs_cases, rs_times, rs_bound = rs_phase(card_line(), dev)
     enc_cases, enc_times, enc_bound = rs_encode_phase(card_line(), dev)
     demap_cases, demap_times, demap_bounds = demap_phase(card_line(), dev)
+    acq_cases, acq_times, acq_bound = acquire_phase(card_line(), dev)
 
     # --- 4. transmitter against the golden 8K snapshot -------------------
     want = np.load(ROOT / "tests" / "golden" / "tx_8k_64qam_23.npz")
@@ -1675,9 +1799,10 @@ def main() -> None:
     require(blk_pk == n_pk, f"block path packets {blk_pk} != {n_pk}")
     (_, blk_ts, blk_info), blk_launches = counted(
         lambda: blk_rx(blk_state, capture))
-    require(blk_launches == {"viterbi_depunct": 1, "rs_decode": 1},
-            f"the block path did not launch K3 and the RS decoder once: "
-            f"{blk_launches}")
+    require(blk_launches == {"viterbi_depunct": 1, "rs_decode": 1,
+                             "acquire": 1},
+            f"the block path did not launch K3, the RS decoder and the "
+            f"acquisition once: {blk_launches}")
     inf = {k: v.cpu().numpy() for k, v in blk_info.items()}
     blk_ts = blk_ts.cpu().numpy()
     flat_blk = blk_sent.transpose(1, 0, 2, 3).reshape(n_mux, -1, 188)
@@ -1807,10 +1932,12 @@ def main() -> None:
     times["rs_decode"] = rs_times["noiseless"]
     times["rs_encode"] = enc_times
     times["demap"] = demap_times["UK hard"]
+    times["acquire"] = acq_times
     bounds = {
         "rs_decode": rs_bound,
         "rs_encode": enc_bound,
         "demap": demap_bounds["UK hard"],
+        "acquire": acq_bound,
         "viterbi": bound(k1_bytes, k1_ops, PACKED16_OPS_S),
         "coder": bound(stream.numel() + k2_out.numel() + state0.numel(),
                        k2_out.numel() * 5 / 32),
@@ -1871,6 +1998,9 @@ def main() -> None:
                  demap_cases),
          "ms_by_case": demap_times, "bound_ms_by_case": {
              k: b[0] for k, b in demap_bounds.items()}},
+        # the largest |cfo_frac difference| of each case (theta equal)
+        entry("acquire", "acquire", "dvbt_tpu_torch/csrc/acquire.cu", None,
+              blk_launches["acquire"], max(acq_cases.values()), acq_cases),
     ]
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in

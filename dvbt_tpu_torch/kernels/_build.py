@@ -42,6 +42,7 @@ _SIGNATURES = {
     "dvbt_rs_decode": [_P, _P, _P, _P, _P, _I, _P],
     "dvbt_rs_encode": [_P, _P, _P, _I, _P],
     "dvbt_demap": [*[_P] * 7, *[_I] * 6, _P],
+    "dvbt_acquire": [*[_P] * 4, *[_I] * 9, _P],
     # K4, the halo ring (csrc/ring.cu); void** outputs are passed by byref
     "dvbt_ring_stream_ops": [_I, _P],
     "dvbt_ring_device_uuid": [_I, _P],
@@ -61,8 +62,9 @@ _SIGNATURES = {
 _RESTYPES = {"dvbt_error_string": ctypes.c_char_p}
 
 # kernel name -> launches in this process: byte_coder (K2), viterbi_punct
-# (K1), viterbi_depunct (K3), rs_decode, rs_encode, demap, ring_shift (K4,
-# one a call on either of its routes)
+# (K1), viterbi_depunct (K3), rs_decode, rs_encode, demap, acquire (one a
+# call: the fold and the pick), ring_shift (K4, one a call on either of its
+# routes)
 launches: collections.Counter = collections.Counter()
 
 

@@ -4,7 +4,8 @@ EN300744 §4.4 + Table 5.
 Counterpart of dvbt_tpu/ops/ofdm.py: ``torch.fft`` with norm="ortho" on
 whole batches of symbols, the same carrier <-> FFT bin map (active
 spectrum centred on DC), and the one-shot CP-correlation timing and
-fractional-CFO estimator, batched over a leading mux axis.
+fractional-CFO estimator (``kernels/acquire.py``), batched over a
+leading mux axis.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels import acquire as kacquire
 from ..mode import DvbtMode
 
 
@@ -59,42 +61,9 @@ def make_ofdm_demodulator(mode: DvbtMode, device, n_sym: int | None = None):
 
 
 def make_symbol_acquisition(mode: DvbtMode, n_samples: int):
-    """One-shot timing + fractional CFO estimator over a sample block (the
-    ``ofdm_sym_acquisition`` block).
-
-    Returns acquire(iq): complex64 (..., n_samples) -> (theta int32 (...),
-    offset of the first complete symbol start in [0, N+guard); cfo_frac
-    float32 (...), fractional carrier offset in subcarriers).
-
-    CP correlation gamma(n) = sum_{k<G} r[n+k] conj(r[n+k+N]) minus an
-    energy term, folded over all whole symbol periods and argmaxed; the
-    CFO is the phase of the folded gamma at the peak.  The moving sums are
-    differences of running sums, taken in double precision: over a whole
-    capture a single-precision running sum loses the few-sample window
-    sums to round-off."""
-    N, G = mode.fft_len, mode.guard_len
-    L = N + G
-    n_folds = (n_samples - N - G) // L
-    if n_folds < 1:
-        raise ValueError("need at least one full symbol for acquisition")
-    rho = 0.1  # SNR-dependent energy weight; modest value is robust
-
-    def acquire(iq: torch.Tensor):
-        r = iq.to(torch.complex128)
-        a, b = r[..., : n_samples - N], r[..., N:]
-        prod = a * b.conj()
-        eng = (a.abs() ** 2 + b.abs() ** 2) * 0.5
-        cs = torch.nn.functional.pad(torch.cumsum(prod, -1), (1, 0))
-        ce = torch.nn.functional.pad(torch.cumsum(eng, -1), (1, 0))
-        gamma = cs[..., G:] - cs[..., :-G]           # (..., n_samples-N-G+1)
-        phi = ce[..., G:] - ce[..., :-G]
-        metric = gamma.abs() - rho * phi
-        usable = n_folds * L
-        m = metric[..., :usable].reshape(*metric.shape[:-1], n_folds, L)
-        g = gamma[..., :usable].reshape(*metric.shape[:-1], n_folds, L)
-        theta = m.sum(-2).argmax(-1)
-        g_sum = torch.gather(g.sum(-2), -1, theta[..., None])[..., 0]
-        cfo = (-torch.angle(g_sum) / (2.0 * np.pi)).to(torch.float32)
-        return theta.to(torch.int32), cfo
-
-    return acquire
+    """The ``ofdm_sym_acquisition`` block: CP-correlation timing and
+    fractional CFO of raw captures, acquire(iq) -> (theta, cfo_frac) (see
+    ``kernels.acquire.make_symbol_acquisition``: the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors).  The synchronizer calls it
+    through this module attribute."""
+    return kacquire.make_symbol_acquisition(mode, n_samples)

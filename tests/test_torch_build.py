@@ -24,6 +24,7 @@ import torch
 
 import dvbt_tpu_torch
 from dvbt_tpu_torch.kernels import _build
+from dvbt_tpu_torch.kernels import acquire as kacquire
 from dvbt_tpu_torch.kernels import coder as kcoder
 from dvbt_tpu_torch.kernels import demap as kdemap
 from dvbt_tpu_torch.kernels import rs as krs
@@ -110,12 +111,19 @@ def _wrapper_case(kernel: str) -> tuple:
         return (kdemap.make_demap_deinterleave(mode, "cpu", "soft"),
                 kdemap.make_demap_deinterleave_plain(mode, "cpu", "soft"),
                 (X, H))
+    if kernel == "acquire":
+        mode = DvbtMode("2k", "qpsk", "1/2", "1/8")
+        n = 4 * mode.symbol_len + 5
+        iq = torch.from_numpy((rng.standard_normal((3, n, 2)) @ [1, 1j])
+                              .astype(np.complex64))
+        return (kacquire.make_symbol_acquisition(mode, n),
+                kacquire.make_symbol_acquisition_plain(mode, n), (iq,))
     return krs.rs_encode, krs.make_rs_encoder_plain("cpu"), (u8(3, 188),)
 
 
 @pytest.mark.parametrize("kernel", ["byte_coder", "viterbi_punct",
                                     "viterbi_depunct", "rs_decode",
-                                    "rs_encode", "demap"])
+                                    "rs_encode", "demap", "acquire"])
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch(kernel):
     wrapper, plain, args = _wrapper_case(kernel)
     before = _build.launches.copy()
